@@ -1,6 +1,6 @@
-"""genomicsbench_palisade_tpu — a TPU-native genomics kernel engine.
+"""genomicsbench_palisade_tpu — a GPU genomics kernel engine in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework (one CUDA kernel through jax.ffi) with the capabilities of the
 GenomicsBench suite (reference: JustKshitijD/genomicsbench_palisade):
 
   * PairHMM forward likelihoods (GATK/GKL semantics)      -> ops.phmm
@@ -13,9 +13,10 @@ GenomicsBench suite (reference: JustKshitijD/genomicsbench_palisade):
   * NN inference models (basecalling / variant calling)   -> models/
 
 Design: host-side parsing + padding/bucketing feeds fixed-shape device
-batches; inner DP loops are lax.scan / Pallas wavefront kernels on the VPU;
-matmul-shaped work (GRM, NN) rides the MXU; multi-chip scaling goes through
-jax.sharding.Mesh + shard_map with psum/all_gather merges.
+batches; inner DP loops are lax.scan wavefronts, and the PairHMM forward
+pass is a CUDA kernel (native/cuda/phmm_forward.cu); matmul-shaped work
+(GRM, NN) goes to cuBLAS/cuDNN through XLA; multi-device scaling goes
+through jax.sharding.Mesh + shard_map with psum/all_gather merges.
 
 The HE (PALISADE) layer of the reference fork is an encryption veneer over
 the plaintext kernels and is intentionally out of scope (see SURVEY.md §0).

@@ -7,8 +7,8 @@ Reproduces the f5c eventalign pipeline the reference benchmarks
 (benchmarks/abea/src/main.c:70 meth_main -> f5c.c event_db/align_db ->
 align.c / align.cu): per read, detect events from the raw signal
 (events.c getevents), estimate shift/scale by method of moments
-(align.c:49-95), run the adaptive banded event alignment (the TPU
-kernel in ops.abea), and emit the eventalign TSV plus stderr timers.
+(align.c:49-95), run the adaptive banded event alignment (the
+engines in ops.abea), and emit the eventalign TSV plus stderr timers.
 
 Without -b/-g, pairs are emitted in read coordinates.  With -b/-g the
 full eventalign mode runs: postalign + WLS recalibration + QC gates

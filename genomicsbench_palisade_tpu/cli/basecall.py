@@ -4,7 +4,7 @@
 Reproduces the bonito basecaller driver contract (benchmarks/nn-base/
 bonito/basecall.py:580-646): loads model weights, iterates reads,
 normalizes each raw signal by its noisiest section, chunks with overlap,
-runs the QuartzNet-CTC forward (one batched MXU conv stack per read),
+runs the QuartzNet-CTC forward (one batched conv stack per read),
 stitches posteriors and viterbi-decodes, writing FASTA to stdout and the
 `> completed reads / duration / samples per second` summary to stderr.
 
@@ -75,7 +75,7 @@ def main(argv=None):
                     help=".npz (name->raw signal), .fast5, or a directory "
                          "of either")
     ap.add_argument("--device", default=None,
-                    help="accepted for reference CLI parity (TPU-resident)")
+                    help="accepted for reference CLI parity (JAX picks the device)")
     ap.add_argument("--weights", default="0",
                     help="weights_<N>.tar selector for model directories")
     ap.add_argument("--chunksize", default=4000, type=int)
@@ -86,7 +86,7 @@ def main(argv=None):
                     help="FASTQ output (constant Q20 quals — the decoder "
                          "emits sequences, not per-base posteriors)")
     # the reference driver defaults to half precision when the GPU supports
-    # it (basecall.py:642); bf16 is the TPU analog (decoder stays f32)
+    # it (basecall.py:642); bf16 is the analog here (decoder stays f32)
     ap.add_argument("--precision", choices=("bf16", "f32"), default="bf16")
     ap.add_argument("--half", action="store_true",
                     help="reference alias for --precision bf16")

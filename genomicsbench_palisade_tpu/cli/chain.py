@@ -21,16 +21,14 @@ from ..ops import chain as C
 from ..ops.oracle import chain as CO
 
 
-def run_calls(calls, want_peaks: bool = True):
+def run_calls(calls):
     """Returns list of (scores, parents, peaks) in input order.
 
-    Device-eligible calls are LANE-PACKED (several calls per kernel lane,
-    ops/chain.chain_calls_packed) and run as a handful of launches — the
-    TPU analog of the reference's OpenMP loop over calls
-    (host_kernel.cpp:484-487), with full 128-lane occupancy on mixed-size
-    datasets instead of one padded lane per call."""
+    Device-eligible calls are bucketed by (padded n, window, distances)
+    and each bucket runs as one vmapped scan: the batch axis plays the
+    reference's OpenMP loop over calls (host_kernel.cpp:484-487)."""
     results = [None] * len(calls)
-    packable = []  # (orig_idx, prepared)
+    buckets = {}  # (n_pad, w, max_dist_x, max_dist_y, bw) -> [(idx, prep)]
     for i, call in enumerate(calls):
         if call.n == 0:
             z = np.zeros(0, np.int32)
@@ -49,11 +47,12 @@ def run_calls(calls, want_peaks: bool = True):
         prep = C.prepare_call(
             call.x, call.y, call.avg_qspan, call.max_dist_x, call.max_dist_y, call.bw
         )
-        packable.append((i, prep))
-    if packable:
-        outs = C.chain_calls_packed([p for _, p in packable],
-                                    want_peaks=want_peaks)
-        for (i, _), out in zip(packable, outs):
+        key = (C.pad_anchor_bucket(prep["n"]), C.window_for(prep),
+               prep["max_dist_x"], prep["max_dist_y"], prep["bw"])
+        buckets.setdefault(key, []).append((i, prep))
+    for (n_pad, w, *_), members in buckets.items():
+        outs = C.chain_calls_batched([p for _, p in members], w=w, n_pad=n_pad)
+        for (i, _), out in zip(members, outs):
             results[i] = out
     return results
 
@@ -70,9 +69,7 @@ def main(argv=None):
 
     calls = parse_chain_dump(args.input)
     t0 = time.perf_counter()
-    # the reference driver dumps scores+parents only (print_return),
-    # so the CLI skips fetching peak scores (~1/3 of output bytes)
-    results = run_calls(calls, want_peaks=False)
+    results = run_calls(calls)
     dt = time.perf_counter() - t0
     if args.output:
         with open(args.output, "w") as f:

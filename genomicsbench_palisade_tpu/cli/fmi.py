@@ -40,7 +40,7 @@ def _report_metrics(batch_totals, dt, total, use_device=True):
     proxied by per-batch smem counts), Consumed, totalSmems.
 
     use_device=False (the host engine) never touches jax: the host
-    search must work — and report — without a reachable TPU backend."""
+    search must work — and report — without an accelerator."""
     from ..parallel.mesh import shard_work_imbalance
 
     if use_device:
@@ -69,12 +69,13 @@ def main(argv=None):
     ap.add_argument("--repeat", type=int, default=1,
                     help="re-run the timed search N times in-process and "
                          "print each Consumed (the reference's own logs "
-                         "record repeat runs, fmi_output:44-48; this VM's "
-                         "wall-clock swings ~±25% across minutes)")
-    ap.add_argument("--engine", choices=("auto", "host", "tpu"), default="auto",
-                    help="host = native C++ search (fast: the FM search is "
-                         "random-access bound and a CPU core does ~70k "
-                         "reads/s); tpu = on-device pipeline")
+                         "record repeat runs, fmi_output:44-48)")
+    ap.add_argument("--engine", choices=("auto", "host", "device"),
+                    default="auto",
+                    help="host = native C++ search (the FM search is "
+                         "random-access bound); device = on-device "
+                         "pipeline; auto = host when the native library "
+                         "is built")
     args = ap.parse_args(argv)
 
     from ..utils.compile_cache import enable as _enable_cache
@@ -86,8 +87,8 @@ def main(argv=None):
 
     engine = args.engine
     if engine == "auto":
-        engine = "host" if _native_ok() else "tpu"
-    if engine == "tpu":
+        engine = "host" if _native_ok() else "device"
+    if engine == "device":
         import jax.numpy as jnp
 
         index = {k: jnp.asarray(v) for k, v in didx.as_device_arrays().items()}
@@ -166,7 +167,7 @@ def main(argv=None):
             rl[i] = len(e)
         return enc, rl
 
-    # software pipeline: keep 2 batches in flight so the relay fetch and
+    # software pipeline: keep 2 batches in flight so the fetch and
     # host unpack of batch k overlap the device compute of batch k+1
     t0 = time.perf_counter()
     starts = list(range(0, num_reads, args.batch_size))

@@ -10,7 +10,7 @@ DEBUG `Hash size:` / `Total k-mers` logger lines
 (vertex_index.cpp:657-658), `Peak RAM usage`, and the stderr
 `Kernel time: %.3f sec` (kmer_cnt.cpp:284).
 
-TPU design: counting is the sort-reduce device pipeline in ops.kmer,
+Design: counting is the sort-reduce device pipeline in ops.kmer,
 batched over padded length buckets; with >1 local device, reads are
 sharded over the mesh and per-shard counts merged through the key-range
 all_to_all path in parallel.dp.
@@ -110,9 +110,8 @@ def main(argv=None):
     total_bases = sum(len(r) for r in reads)
     if total_bases > 192_000_000:
         # GB-scale read sets (sequence_container.cpp regime): host hash
-        # engine when built (counting is random-access CPU-shaped work,
-        # ~10x the device sort rate at this scale — the fmi dual-engine
-        # split), else stream through the device accumulator
+        # engine when built (counting is random-access CPU-shaped work —
+        # the fmi dual-engine split), else stream through the device accumulator
         metrics = K.count_kmers_host(
             reads, k=kmer_size, min_read_length=min_read_length)
         if metrics is None:

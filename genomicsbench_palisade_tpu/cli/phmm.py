@@ -38,7 +38,7 @@ def run_testcases(reads, haps, pairs, mesh=None, edges=(64, 128, 256, 512)):
         idxs = [i for i, _ in members]
         sub_pairs = [p for _, p in members]
         batch = P.prepare_batch(reads, haps, sub_pairs, r_pad=r_pad,
-                                h_pad=h_pad, transposed=False)
+                                h_pad=h_pad)
         batch_np = {k: np.asarray(v) for k, v in batch.items()}
         if mesh is not None and mesh.devices.size > 1:
             sharded, n_orig = shard_batch(batch, mesh)
@@ -46,7 +46,7 @@ def run_testcases(reads, haps, pairs, mesh=None, edges=(64, 128, 256, 512)):
             log10, _res, fallback = map(np.asarray, P.phmm_forward(sharded))
             log10, fallback = log10[:n_orig], fallback[:n_orig]
         else:
-            # production dispatch: pallas striped wavefront on TPU
+            # production dispatch: the CUDA kernel on a GPU
             log10, _res, fallback = map(np.asarray,
                                         P.phmm_forward_auto(batch_np))
         out = log10.astype(np.float64)

@@ -72,8 +72,7 @@ def main(argv=None):
         end = refs[chrom_id][1]
 
     # fully-fused native region path (decode -> layout -> fill in C, no
-    # Python record objects; 1.25x medaka_counts+htslib, REF_BASELINE):
-    # eligible when indexed, non-weibull, single-dtype
+    # Python record objects); eligible when indexed, non-weibull, single-dtype
     use_fused = (fetch_chunk is not None and not args.weibull
                  and not args.dtypes)
     if use_fused:

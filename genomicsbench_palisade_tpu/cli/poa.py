@@ -52,8 +52,8 @@ def main(argv=None):
                     default="auto",
                     help="auto = native host align engine when built "
                     "(graph DP at window sizes is cache-resident CPU "
-                    "work; measured 2.4x the reference SISD binary), "
-                    "device = TPU lock-step fill")
+                    "work), "
+                    "device = lock-step device fill")
     args = ap.parse_args(argv)
 
     from ..utils.compile_cache import enable as _enable_cache

@@ -15,8 +15,6 @@ from dataclasses import dataclass, field
 class PhmmConfig:
     r_buckets: tuple = (64, 128, 256, 512)
     h_buckets: tuple = (128, 192, 256, 320, 384, 512)
-    lane_tile: int = 128
-    use_pallas: bool = True
 
 
 @dataclass

@@ -95,10 +95,10 @@ def build_arrays(forward_codes: np.ndarray, sa_compression: bool = False
     sa[0] = pac_len  # virtual sentinel suffix ranks first
     suffix_array(full, out=sa[1:])  # SA-IS fills the tail in place
 
-    # previous-character gather.  Two perf traps at genome scale on this
-    # class of VM: numpy's `int64_array % python_int` takes a ~30x
-    # slower scalar path, and every fresh multi-GB temporary pays
-    # first-touch page faults (~7 s per 256 MB measured) — so shift sa
+    # previous-character gather.  Two perf traps at genome scale:
+    # numpy's `int64_array % python_int` takes a slow scalar path, and
+    # every fresh multi-GB temporary pays first-touch page faults — so
+    # shift sa
     # in place and restore instead of materializing (sa - 1) % pac_len.
     sentinel_index = int(np.nonzero(sa == 0)[0][0])
     sa -= 1
@@ -213,8 +213,8 @@ def write_bntseq(prefix: str, codes: np.ndarray, names, lengths, holes,
         for o, length, ch in holes:
             f.write(f"{o} {length} {ch}\n")
     # O(l_pac) bytes: pad to a multiple of 4 and combine columns (an
-    # np.bitwise_or.at over int64 index/shift temporaries costs ~25x the
-    # genome size in RAM and minutes of ufunc.at time at hg38 scale)
+    # np.bitwise_or.at over int64 index/shift temporaries needs many
+    # times the genome size in RAM at hg38 scale)
     pad4 = (-l_pac) % 4
     quad = np.concatenate([codes.astype(np.uint8),
                            np.zeros(pad4, np.uint8)]).reshape(-1, 4)

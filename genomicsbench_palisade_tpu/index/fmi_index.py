@@ -1,4 +1,4 @@
-"""FM-index build/load and conversion to the TPU device layout.
+"""FM-index build/load and conversion to the device layout.
 
 Reference index format `.bwt.2bit.64` (tools/bwa-mem2/src/FMI_search.cpp
 :176-356 build_fm_index, :469-588 load_index):
@@ -12,8 +12,9 @@ Reference index format `.bwt.2bit.64` (tools/bwa-mem2/src/FMI_search.cpp
 
 Device layout: cp_count as int64 [blocks, 4] (or int32 for small indexes)
 and the one-hot planes split into two uint32 words per (block, base):
-hi = block positions 0..31 (bits 63..32), lo = positions 32..63 — TPU has
-no native u64, popcounts run on u32.
+hi = block positions 0..31 (bits 63..32), lo = positions 32..63 — the
+device code avoids u64 (JAX disables 64-bit types by default), so
+popcounts run on u32.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Length bucketing: fixed-shape batches for XLA.
 
 The reference handles variable lengths with dynamic scheduling / histogram
-sorts (bandedSWA.cpp:1186-1213 SORT_PAIRS); on TPU every shape compiles a
-kernel, so work is grouped into a small set of padded shape buckets.
+sorts (bandedSWA.cpp:1186-1213 SORT_PAIRS); under XLA every shape
+compiles a program, so work is grouped into a small set of padded shape buckets.
 """
 
 from __future__ import annotations

@@ -91,124 +91,8 @@ def _pairs_lib():
             ctypes.c_void_p]
         lib.gt_sub48.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-        lib.gt_chain_encode.restype = ctypes.c_int64
-        lib.gt_chain_encode.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
-            + [ctypes.c_void_p] * 8)
-        lib.gt_chain_pack_encode.restype = ctypes.c_int64
-        lib.gt_chain_pack_encode.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4
-            + [ctypes.c_void_p] * 8)
-        lib.gt_chain_unpack.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-             ctypes.c_int32] + [ctypes.c_void_p] * 6 + [ctypes.c_int64])
         lib._pairs_ready = True
     return lib
-
-
-def chain_unpack_native(fetched, lane_tile: int, n_pad: int,
-                        want_peaks: bool, metas):
-    """Per-call unpack of the fetched chain output block
-    (gt_chain_unpack).  metas: list of (n, lane, off).  Returns a list
-    of (scores i32[n], parents i64[n], peaks i32[n]|None) or None."""
-    lib = _pairs_lib()
-    if not lib:
-        return None
-    fetched = np.ascontiguousarray(fetched, np.int32)
-    nc = len(metas)
-    outs = []
-    sc_p = np.empty(nc, np.int64)
-    par_p = np.empty(nc, np.int64)
-    pk_p = np.empty(nc, np.int64)
-    c_n = np.empty(nc, np.int32)
-    c_lane = np.empty(nc, np.int32)
-    c_off = np.empty(nc, np.int32)
-    for i, (n, lane, off) in enumerate(metas):
-        sc = np.empty(n, np.int32)
-        par = np.empty(n, np.int64)
-        pk = np.empty(n, np.int32) if want_peaks else None
-        outs.append((sc, par, pk))
-        sc_p[i] = sc.ctypes.data
-        par_p[i] = par.ctypes.data
-        pk_p[i] = pk.ctypes.data if want_peaks else 0
-        c_n[i], c_lane[i], c_off[i] = n, lane, off
-    lib.gt_chain_unpack(
-        fetched.ctypes.data, lane_tile, n_pad,
-        1 if want_peaks else 0, sc_p.ctypes.data, par_p.ctypes.data,
-        pk_p.ctypes.data, c_n.ctypes.data, c_lane.ctypes.data,
-        c_off.ctypes.data, nc)
-    return outs
-
-
-def chain_pack_encode_native(call_rows, lanes: int, n_pad: int,
-                             corr_guess: int = 8192):
-    """Fused lane-pack + chain delta-wire encode (gt_chain_pack_encode).
-
-    call_rows: list of (x_i32, qi_i32, st_i32, qspan_i32, n, lane, off,
-    slope) SORTED by (lane, off), arrays 4-byte C-contiguous.  Returns
-    (w1, w2, corr dict, k) or None when the native lib isn't built."""
-    lib = _pairs_lib()
-    if not lib:
-        return None
-    nc = len(call_rows)
-    xp = np.fromiter((r[0].ctypes.data for r in call_rows), np.int64, nc)
-    qip = np.fromiter((r[1].ctypes.data for r in call_rows), np.int64, nc)
-    stp = np.fromiter((r[2].ctypes.data for r in call_rows), np.int64, nc)
-    qsp = np.fromiter((r[3].ctypes.data for r in call_rows), np.int64, nc)
-    meta = np.array([[r[4], r[5], r[6], r[7]] for r in call_rows],
-                    np.int32).reshape(nc, 4)
-    c_n = np.ascontiguousarray(meta[:, 0])
-    c_lane_in = np.ascontiguousarray(meta[:, 1])
-    c_off = np.ascontiguousarray(meta[:, 2])
-    c_slope = np.ascontiguousarray(meta[:, 3])
-    w1 = np.empty((lanes, n_pad), np.int32)
-    w2 = np.empty((lanes, n_pad), np.int32)
-
-    def run(cap):
-        corr = {nm: np.zeros(cap, np.int32)
-                for nm in ("lane", "pos", "x", "qi", "st", "m")}
-        k = lib.gt_chain_pack_encode(
-            xp.ctypes.data, qip.ctypes.data, stp.ctypes.data,
-            qsp.ctypes.data, c_n.ctypes.data, c_lane_in.ctypes.data,
-            c_off.ctypes.data, c_slope.ctypes.data, nc, lanes, n_pad,
-            cap, w1.ctypes.data, w2.ctypes.data,
-            *(corr[nm].ctypes.data for nm in
-              ("lane", "pos", "x", "qi", "st", "m")))
-        return corr, int(k)
-
-    corr, k = run(corr_guess)
-    if k > corr_guess:
-        corr, k = run(k)
-    return w1, w2, corr, k
-
-
-def chain_encode_native(x, qi, st, slope, qspan, corr_guess: int = 8192):
-    """One-pass chain delta-wire encode (native/pairsio.cpp), or None.
-
-    Inputs are the [lanes, n_pad] i32 packed planes; returns
-    (w1, w2, corr dict, k) with corr arrays sized exactly k."""
-    lib = _pairs_lib()
-    if not lib:
-        return None
-    lanes, n = x.shape
-    w1 = np.empty((lanes, n), np.int32)
-    w2 = np.empty((lanes, n), np.int32)
-
-    def run(cap):
-        corr = {nm: np.zeros(cap, np.int32)
-                for nm in ("lane", "pos", "x", "qi", "st", "m")}
-        k = lib.gt_chain_encode(
-            x.ctypes.data, qi.ctypes.data, st.ctypes.data,
-            slope.ctypes.data, qspan.ctypes.data, lanes, n, cap,
-            w1.ctypes.data, w2.ctypes.data,
-            *(corr[nm].ctypes.data for nm in
-              ("lane", "pos", "x", "qi", "st", "m")))
-        return corr, int(k)
-
-    corr, k = run(corr_guess)
-    if k > corr_guess:
-        corr, k = run(k)
-    return w1, w2, corr, k
 
 
 def sub48_native(arr: np.ndarray):

@@ -65,9 +65,9 @@ def parse_pairs_soa(path_or_file, max_pairs: int | None = None):
     Returns a dict with the whole-file decoded code buffer plus per-pair
     offset/length/h0 arrays:
         codes [bytes] int8, q_off/t_off int64, q_len/t_len int32, h0 int32
-    The per-record loop in parse_pairs (h0 int() + tuple build) costs
-    ~10 us/record — over 100 s at the reference's bsw_large scale
-    (10.6M pairs, scripts/bsw_large:5-8); here h0 digits are parsed with
+    The per-record loop in parse_pairs (h0 int() + tuple build) is too
+    slow at the reference's bsw_large scale (10.6M pairs,
+    scripts/bsw_large:5-8); here h0 digits are parsed with
     a handful of vectorized gathers instead.  When the native library is
     built, the structural scan runs in C++ (native/pairsio.cpp): the
     numpy newline scan alone costs ~22 s on the 3.8 GB bsw_large file vs
@@ -79,9 +79,8 @@ def parse_pairs_soa(path_or_file, max_pairs: int | None = None):
             data = data.encode()
         arr = np.frombuffer(data, np.uint8)
     else:
-        # mmap instead of read(): this VM copies at ~200 MB/s, so the
-        # 3.8 GB bsw_large file costs ~19 s to slurp; mapped pages are
-        # read in place by the native scan and the fused decode
+        # mmap instead of read(): the 3.8 GB bsw_large file need not be
+        # copied; mapped pages are read in place by the native scan and the fused decode
         import mmap
 
         try:

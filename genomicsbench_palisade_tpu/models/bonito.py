@@ -6,8 +6,8 @@ models/bonito_dna_r941/config.toml — 8 blocks of time-channel-separable
 decoder conv, log_softmax over the 5-label alphabet "NACGT", greedy/
 viterbi CTC decoding (fast_ctc_decode replacement).
 
-TPU notes: convs run as NWC lax convolutions (MXU); inference-mode batch
-norm is folded affine math.  `load_torch_state_dict` converts the
+Device notes: convs run as NWC lax convolutions (cuDNN through XLA);
+inference-mode batch norm is folded affine math.  `load_torch_state_dict` converts the
 reference's PyTorch weights when available.
 """
 
@@ -374,13 +374,13 @@ def stitch(predictions, overlap_out):
 
 def basecall_read(model, params, signal, chunksize=4000, overlap=0,
                   stride=MODEL_STRIDE, beamsize=1):
-    """Full single-read pipeline: chunk -> ONE batched forward (MXU) ->
+    """Full single-read pipeline: chunk -> ONE batched forward ->
     stitch posteriors -> decode (basecall.py main(), :600-620; beamsize>1
     uses the reference's default prefix beam search, 1 = viterbi).
 
     The chunk batch is padded to a power-of-two bucket so mixed-length
     reads share one compiled forward (each distinct chunk count would
-    otherwise recompile the conv stack, ~40 s on a real chip)."""
+    otherwise recompile the conv stack)."""
     chunks = chunk_signal(signal, chunksize, overlap)
     n = chunks.shape[0]
     n_pad = max(1, int(2 ** np.ceil(np.log2(n))))

@@ -9,7 +9,7 @@ Architecture source: benchmarks/nn-variant/clair/model.py:330-640
   -> four heads dense 96 selu -> softmax outputs:
      gt21 (21), genotype (3), indel length 1 (33), indel length 2 (33)
 
-TPU notes: the BiLSTM scans run under lax.scan; inference is dropout-free
+Device notes: the BiLSTM scans run under lax.scan; inference is dropout-free
 (the reference's dropouts are training-only).
 """
 
@@ -50,8 +50,8 @@ class BiLSTM(nn.Module):
                 split_rngs={"params": False},
                 in_axes=1,
                 out_axes=1,
-                # T=33 is static and small: full unroll removes the ~25 us
-                # per-step device-loop floor (PERF.md)
+                # T=33 is static and small: full unroll removes the
+                # per-step loop overhead
                 unroll=POSITIONS,
             )
             _, ys = scan(cell, carry, seq)

@@ -1,8 +1,8 @@
-"""Adaptive banded event alignment on TPU (f5c eventalign capability).
+"""Adaptive banded event alignment on the device (f5c eventalign capability).
 
-TPU-native design: the band-fill loop (align.c:289-399 / the CUDA kernels
-at f5c.cu:450-497) becomes a lax.scan over bands; each step is pure VPU
-work on [bandwidth]-wide vectors — the adaptive move decision, three
+The band-fill loop (align.c:289-399 / the CUDA kernels
+at f5c.cu:450-497) becomes a lax.scan over bands; each step is vector
+work on [bandwidth]-wide rows — the adaptive move decision, three
 shifted reads of the previous two bands (static-width dynamic slices of
 padded rows), pore-model gathers, the log-normal emission, and the
 3-state max with the reference's exact tie-break (U on equality beats D,
@@ -87,8 +87,7 @@ def abea_fill_bands(
     bandwidth: int = ALN_BANDWIDTH,
 ):
     # hoist the pore-model lookup out of the band loop: ONE [K_pad] gather
-    # instead of three [bw] gathers per band (the per-step gathers dominated
-    # the loop at the ~25 us/step device floor)
+    # instead of three [bw] gathers per band
     ranks_all = kmer_ranks_pad
     gm_pad = scale * level_mean[ranks_all] + shift
     stdv_pad = level_stdv[ranks_all]
@@ -190,8 +189,8 @@ def abea_fill_bands(
 
 def _bucket(n, q=256):
     # bucket padded shapes to multiples of 256 so mixed-length read sets
-    # reuse one compiled kernel (shape-exact padding recompiled per read
-    # length, ~40 s each on a real chip)
+    # reuse one compiled program (shape-exact padding recompiles per read
+    # length)
     return -(-n // q) * q
 
 
@@ -429,11 +428,9 @@ def align_events_batch_native(sequences, event_means_list, model, scales,
     lib isn't built.
 
     The band recurrence is sequential over ~n_events + n_kmers bands
-    per read — latency-bound on device (the Pallas path measured 109k
-    events/s at ABEA_SCALE vs the reference align.c's 176k on one CPU
-    core, REF_BASELINE r5) but vector-width-parallel WITHIN a band on
-    the host, so this is the production default (the fmi/kmer/poa
-    dual-engine precedent)."""
+    per read — latency-bound on a device, but vector-width-parallel
+    WITHIN a band on the host, so this is the production default (the
+    fmi/kmer/poa dual-engine precedent)."""
     import ctypes
 
     from ..io.native import _load
@@ -478,32 +475,21 @@ def align_events_batch_native(sequences, event_means_list, model, scales,
 
 def align_events_batch(sequences, event_means_list, model, scales, shifts,
                        bandwidth: int = ALN_BANDWIDTH, k: int = oracle.KMER_SIZE,
-                       use_pallas: bool | None = None,
-                       use_native: bool | None = None):
+                       use_native: bool = True):
     """Batched eventalign: reads grouped by padded-shape bucket, each group
     filled in ONE vmapped device dispatch; tracebacks run on the host.
 
     Returns a list of alignments ([(kmer_idx, event_idx)] or []) in input
     order.  Engine order: native host fill (production default — see
-    align_events_batch_native), else Pallas on TPU (identical output,
-    ~2x the vmapped scan), else the jnp scan reference path.
+    align_events_batch_native; use_native=False skips it), else the
+    device jnp scan.
     """
-    if use_native is None:
-        use_native = use_pallas is None  # explicit engine choice wins
     if use_native:
         res = align_events_batch_native(
             sequences, event_means_list, model, scales, shifts,
             bandwidth=bandwidth, k=k)
         if res is not None:
             return res
-    if use_pallas is None:
-        use_pallas = jax.default_backend() != "cpu"
-    if use_pallas and bandwidth == ALN_BANDWIDTH:
-        from .abea_pallas import align_events_batch_pallas
-
-        return align_events_batch_pallas(
-            sequences, event_means_list, model, scales, shifts,
-            bandwidth=bandwidth, k=k)
     bw = bandwidth
     results = [None] * len(sequences)
     groups = {}

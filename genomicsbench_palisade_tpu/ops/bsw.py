@@ -1,6 +1,6 @@
-"""Banded Smith-Waterman extension on TPU (bwa-mem ksw_extend semantics).
+"""Banded Smith-Waterman extension on the device (bwa-mem ksw_extend semantics).
 
-TPU-native design: the reference's AVX kernel (bandedSWA.cpp:1447
+The reference's AVX kernel (bandedSWA.cpp:1447
 smithWaterman256_16) puts 16 pairs in SIMD lanes and walks rows x columns
 sequentially.  Here the batch of pairs is the lane axis and each target row
 is ONE vectorized step over the whole [B, Q] row: the only true sequential
@@ -274,3 +274,51 @@ def bsw_batch(batch, params=_params_tuple(DEFAULT_PARAMS)):
         "gscore": state["gscore"],
         "max_off": state["max_off"],
     }
+
+
+OUT_ORDER = ("score", "qle", "tle", "gtle", "gscore", "max_off")
+
+
+def pack_codes_2bit(codes):
+    """Host-side 2-bit pack: [n, L] uint8 base codes in 0..3 (pad slots 0),
+    L % 4 == 0, -> [n, L//4] uint8 wire bytes (little-endian within the
+    byte): a quarter of the int8 bytes to move to the device."""
+    n, L = codes.shape
+    assert L % 4 == 0, L
+    b = (codes[:, 0::4] | (codes[:, 1::4] << 2)
+         | (codes[:, 2::4] << 4) | (codes[:, 3::4] << 6))
+    return np.ascontiguousarray(b, dtype=np.uint8)
+
+
+def unpack_codes_2bit(packed, length, nlen, fill=4):
+    """Device-side inverse of pack_codes_2bit: -> [n, length] i32 codes,
+    positions >= nlen restored to the pad value (bit-exact reconstruction
+    of the raw padded array)."""
+    shifts = jnp.arange(4, dtype=jnp.uint8) * jnp.uint8(2)
+    codes = ((packed[:, :, None] >> shifts[None, None, :])
+             & jnp.uint8(3)).reshape(packed.shape[0], -1)
+    codes = codes[:, :length].astype(jnp.int32)
+    j = jnp.arange(length, dtype=jnp.int32)[None, :]
+    return jnp.where(j < nlen[:, None], codes, jnp.int32(fill))
+
+
+@functools.partial(jax.jit, static_argnames=("q_pad", "t_pad", "params",
+                                             "narrow"))
+def bsw_batch_stacked(batch, q_pad=None, t_pad=None,
+                      params=_params_tuple(DEFAULT_PARAMS),
+                      narrow: bool = False):
+    """bsw_batch returning ONE stacked [6, B] array (OUT_ORDER rows), so
+    a driver fetches one object per dispatch.  batch carries either raw
+    "query"/"target" codes or the 2-bit "qpack"/"tpack" wire (with
+    q_pad/t_pad), unpacked on device inside the same jit.  narrow=True
+    casts to int16 before the fetch: callers prove the bound (max |h0| +
+    q_pad*match plus index fields <= t_pad) fits."""
+    if "qpack" in batch:
+        qlen = batch["qlen"].astype(jnp.int32)
+        tlen = batch["tlen"].astype(jnp.int32)
+        batch = {"query": unpack_codes_2bit(batch["qpack"], q_pad, qlen),
+                 "target": unpack_codes_2bit(batch["tpack"], t_pad, tlen),
+                 "qlen": qlen, "tlen": tlen, "h0": batch["h0"]}
+    out = bsw_batch(batch, params)
+    arr = jnp.stack([out[k] for k in OUT_ORDER])
+    return arr.astype(jnp.int16) if narrow else arr

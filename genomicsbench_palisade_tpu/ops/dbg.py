@@ -21,7 +21,7 @@ Semantics source: benchmarks/dbg/debruijn.cpp —
     ref context = [assemStart-1500, assemEnd+1500)
 
 This subsystem is host-side by design (hash/pointer-bound graph build —
-SURVEY.md §7 step 9); the TPU framework keeps it for capability parity.
+SURVEY.md §7 step 9); this framework keeps it for capability parity.
 """
 
 from __future__ import annotations

@@ -92,7 +92,7 @@ def emit_tsv_lines_fast(events, model, sc, alignments, read_index,
     assert it) but with the per-row float op tree computed as
     elementwise f32/f64 arrays and kmer ranks decoded in one translate
     pass.  The per-row Python loop was most of the eventalign CLI's
-    wall time (REF_BASELINE eventalign row)."""
+    wall time."""
     n = len(alignments)
     if n == 0:
         return []

@@ -1,10 +1,10 @@
-"""FM-index SMEM seeding on TPU (bwa-mem2 semantics).
+"""FM-index SMEM seeding on the device (bwa-mem2 semantics).
 
-TPU-native design.  The reference walks each read's SMEM search with
+The reference walks each read's SMEM search with
 pointer-chasing occ lookups (FMI_search.cpp:986-1326); here thousands of
 reads advance in lock-step, each step doing batched gathers into the
 checkpointed-occ arrays (cp_count int planes + one-hot BWT bit planes as
-2x uint32 words — no u64 on device) followed by pure VPU popcount math.
+2x uint32 words — no u64 on device) followed by vector popcount math.
 
 Key reformulations (all bit-parity-tested against the oracle):
   * backwardExt([B] intervals) = two [B,4] gather+popcount occ batches,
@@ -97,7 +97,7 @@ def occ_all(index, pp):
     reference's cache-line CP_OCC layout) when the index provides it.
     When the index carries "shard_axis" (inside a shard_map whose
     cp_pack rows are sharded by block range — genome-scale indexes
-    outgrow one chip's HBM), the owner shard gathers locally and
+    outgrow one device's memory), the owner shard gathers locally and
     broadcasts the row with one psum, so the FULL 3-phase SMEM pipeline
     runs unchanged over a sharded index."""
     blk = (pp >> 6).astype(jnp.int32)
@@ -191,7 +191,7 @@ def _emit(bufs, counts, mask, m, n, k, l, s, m_cap):
 
 def _row_write(trace, t, row):
     """Write row [B] at step index t of trace [T, B] (contiguous store,
-    NOT a scatter — XLA scatters cost ~35 us inside device loops)."""
+    NOT a scatter — scatters inside device loops are slow)."""
     return jax.lax.dynamic_update_slice_in_dim(trace, row[None, :], t, 0)
 
 

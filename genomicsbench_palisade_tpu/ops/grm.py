@@ -1,4 +1,4 @@
-"""Genetic relationship matrix on TPU (plink2 --make-grm-bin capability).
+"""Genetic relationship matrix on the device (plink2 --make-grm-bin capability).
 
 Semantics source: benchmarks/grm/2.0/plink2_matrix_calc.cc:3231-3279
 (ExpandCenteredVarmaj: normed dosage = (g - 2*alt_freq) / sqrt(2*p*(1-p)),
@@ -6,10 +6,16 @@ degenerate variants zeroed), :3668-3704 (GRM = Z^T Z accumulated over
 variant blocks — "dsyrk_ does exactly what we want"), missing genotypes
 excluded per sample pair via nonmissing counts (grm.N.bin).
 
-TPU-native: this is the suite's most MXU-friendly kernel — two batched
-matmuls per variant block (Z^T Z for sums, V^T V for per-pair nonmissing
-counts), fp32 accumulation, variants sharded across chips with a psum
-merge (parallel/dp.py pattern).
+Two matmuls per variant block (Z^T Z for sums, V^T V for per-pair
+nonmissing counts) with f32 accumulation, variants sharded across devices
+with a psum merge (parallel/dp.py pattern).
+
+Precision: plink2 computes Z^T Z in double and the contract is 2e-5.  On
+an H100 (700 W) at m=32768, n=2048 (tools/grm_sweep.py) only
+Precision.HIGHEST (true f32) meets it: max rel err 6.9e-7, against
+3.4e-5 for HIGH/DEFAULT (one TF32 pass), 2.4e-5 for the bf16x3 and
+2.6e-5 for the tf32x3 algorithm presets — their dropped low-order terms
+bias the diagonal, where every product is positive.
 """
 
 from __future__ import annotations
@@ -49,32 +55,29 @@ def normalize_block_np(geno: np.ndarray, freqs: np.ndarray | None = None):
     return z.astype(np.float32), v.astype(np.float32), freqs
 
 
+SUMS_PRECISION = jax.lax.Precision.HIGHEST
+
+
 @jax.jit
 def grm_block_update(grm_sums, grm_counts, z, v):
     """Accumulate one variant block: sums += Z^T Z, counts += V^T V."""
-    # TPU lowers f32 matmuls to ONE bf16 pass by default (~4e-3 relative
-    # error vs plink2's double dsyrk).  Precision.HIGH (bf16x3) meets the
-    # 2e-5 plink2-parity tolerance at ~10x the HIGHEST (bf16x6) rate, and
-    # the GRM's per-pair count normalization means the tolerance margin
-    # GROWS with variant count (error in the sum ~ sqrt(M), result ~ M).
     grm_sums = grm_sums + jnp.dot(
-        z.T, z, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGH)
+        z.T, z, preferred_element_type=jnp.float32, precision=SUMS_PRECISION)
     grm_counts = grm_counts + jnp.dot(
         v.T, v, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGH)
+        precision=jax.lax.Precision.DEFAULT)
     return grm_sums, grm_counts
 
 
 @functools.partial(jax.jit, static_argnames=("block", "precision"))
 def _grm_device(geno_i8, two_f, inv_stdev, ok, block: int,
-                precision=jax.lax.Precision.HIGH):
+                precision=SUMS_PRECISION):
     """On-device normalization + blocked Z^T Z / V^T V (one dispatch).
 
     geno_i8: [M, N] int8; two_f/inv_stdev/ok: [M] f32/f32/bool computed on
     the host in float64 (plink2's double allele-freq math, exact).
-    precision defaults to bf16x3 (HIGH) — the cheapest mode meeting the
-    2e-5 contract vs plink2's double dsyrk (tools/grm_sweep.py)."""
+    precision is the Z^T Z matmul's (a lax.Precision or
+    DotAlgorithmPreset); see the module docstring for the choice."""
     m, n = geno_i8.shape
     n_blocks = -(-m // block)
     pad = n_blocks * block - m
@@ -94,29 +97,11 @@ def _grm_device(geno_i8, two_f, inv_stdev, ok, block: int,
         z = (g - tf[:, None]) * isd[:, None]
         z = jnp.where(miss | ~okb[:, None], 0.0, z)
         v = jnp.where(miss | ~okb[:, None], 0.0, 1.0)
-        if precision == "compensated":
-            # split-bf16 exploiting the syrk structure HIGH's generic
-            # dot_general can't: with Z = Zh + Zl (bf16 halves),
-            # Z^T Z = Zh^T Zh + Zh^T Zl + (Zh^T Zl)^T + Zl^T Zl — the
-            # two cross terms are TRANSPOSES of each other, so ONE
-            # cross matmul + an elementwise transpose-add replaces
-            # HIGH's two, and the dropped Zl^T Zl is O(2^-18) relative
-            # (same truncation HIGH makes).  2 MXU passes vs HIGH's 3.
-            zh = z.astype(jnp.bfloat16).astype(jnp.float32)
-            zl = (z - zh).astype(jnp.bfloat16).astype(jnp.float32)
-            main = jnp.dot(zh.T, zh, preferred_element_type=jnp.float32,
-                           precision=jax.lax.Precision.DEFAULT)
-            cross = jnp.dot(zh.T, zl, preferred_element_type=jnp.float32,
-                            precision=jax.lax.Precision.DEFAULT)
-            sums = sums + main + cross + cross.T
-        else:
-            # bf16x3: see grm_block_update's precision note
-            sums = sums + jnp.dot(
-                z.T, z, preferred_element_type=jnp.float32,
-                precision=precision)
-        # V is 0/1: every product is bf16-exact and the f32 accumulator
-        # is exact below 2^24 variants, so ONE bf16 pass (DEFAULT) is
-        # bit-correct — HIGH's extra passes here were pure waste
+        sums = sums + jnp.dot(z.T, z, preferred_element_type=jnp.float32,
+                              precision=precision)
+        # V is 0/1: every product is exact in TF32 or bf16 and the f32
+        # accumulator is exact below 2^24 variants, so one low-precision
+        # pass (DEFAULT) is bit-correct
         counts = counts + jnp.dot(
             v.T, v, preferred_element_type=jnp.float32,
             precision=jax.lax.Precision.DEFAULT)
@@ -149,7 +134,7 @@ def compute_grm(geno: np.ndarray, block: int = 4096,
     Returns (grm [N,N] f32, counts [N,N] f32): grm[j,k] = sum z_ij z_ik /
     nonmissing-pair count (GCTA/plink2 --make-grm-bin semantics).
     Allele freqs are computed on the host in float64 (plink2's double
-    math); normalization + the MXU matmuls run in one device dispatch.
+    math); normalization + the matmuls run in one device dispatch.
     """
     m, n = geno.shape
     miss = geno == 3

@@ -1,12 +1,12 @@
-"""Canonical k-mer counting on TPU (Flye KmerCounter capability).
+"""Canonical k-mer counting on the device (Flye KmerCounter capability).
 
-TPU-native design: the reference (benchmarks/kmer-cnt/vertex_index.cpp:515-659)
+The reference (benchmarks/kmer-cnt/vertex_index.cpp:515-659)
 uses an 8 GB atomic 4-bit saturating counter array + a concurrent cuckoo
-hash for overflow.  Dense 4^17/2 histograms don't fit a single v5e HBM and
-atomics don't exist in XLA, so counting is reformulated as a sort-reduce:
+hash for overflow.  Dense 4^17/2 histograms are 8 GB per device and
+XLA has no atomic increments, so counting is reformulated as a sort-reduce:
 
   1. pack every read window into a 34-bit k-mer code held as two uint32
-     planes (hi: top 2k-32 bits, lo: low 32) — pure VPU shifts, no u64
+     planes (hi: top 2k-32 bits, lo: low 32) — plain shifts, no u64
   2. canonicalize: lexicographic min(code, revcomp) (kmer.h:53-61)
   3. lexicographic sort of (hi, lo) with validity as the top key
      (jax.lax.sort, num_keys=3)
@@ -14,7 +14,7 @@ atomics don't exist in XLA, so counting is reformulated as a sort-reduce:
      whose frequency exceeds the 4-bit saturation (>15) — exactly the
      "Total k-mers" / "Hash size" metrics the reference reports.
 
-Multi-chip: each shard counts its reads locally; merging histograms is a
+Multi-device: each shard counts its reads locally; merging histograms is a
 key-range all_to_all + local sort (parallel/), or for metric-only parity a
 single-device gather.  Parity quirks preserved: the k-mer at the final
 position len-k of each read is NOT counted (kmer.h:177-200), non-ACGT
@@ -173,11 +173,11 @@ def count_kmers(reads, k: int = DEFAULT_K, min_read_length: int = 5000):
 @functools.partial(jax.jit, static_argnames=("k", "l_pad"))
 def _batch_kmers(packed, lengths, k: int, l_pad: int):
     """2-bit packed read batch -> flattened (inv, canonical hi, lo) kmer
-    streams.  The wire ships 4 bases/byte (the relay moves ~70 MB/s; a
-    1 Gbp dataset is 250 MB packed vs 4 GB as the old int32 rows)."""
-    from .bsw_pallas import _unpack2
+    streams.  The wire ships 4 bases/byte (a 1 Gbp dataset is 250 MB
+    packed vs 4 GB as int32 rows)."""
+    from .bsw import unpack_codes_2bit
 
-    bases = _unpack2(packed, l_pad, lengths, fill=0)
+    bases = unpack_codes_2bit(packed, l_pad, lengths, fill=0)
     hi, lo, valid = pack_kmers(bases, lengths, k)
     chi, clo = canonical(hi, lo, k)
     inv = (~valid).astype(jnp.uint32).ravel()
@@ -243,7 +243,7 @@ def count_kmers_batched(reads, k: int = DEFAULT_K,
     cap bounds the DISTINCT kmers (genome size + error novelties); a
     RuntimeError names the overflow rather than silently truncating.
     """
-    from .bsw_pallas import pack_codes_2bit
+    from .bsw import pack_codes_2bit
 
     kept = [r for r in reads if len(r) > min_read_length]
     if not kept:
@@ -349,8 +349,7 @@ def build_minimizer_index(reads, k: int = DEFAULT_K, window: int = 5,
     """Production buildIndexMinimizers (same contract/metrics as
     ops.oracle.kmer.build_minimizer_index, which stays the pure spec):
     the monotone-deque selection runs in C++ when the native lib is built
-    (native/minimizers.cpp, fuzz-exact vs the oracle, ~28x the Python
-    deque walk)."""
+    (native/minimizers.cpp, fuzz-exact vs the oracle)."""
     from collections import Counter
 
     from ..io.native import minimizer_counts_native

@@ -3,7 +3,7 @@
 Each oracle is a direct, readable re-statement of the reference algorithm's
 semantics (cited file:line in each module). They are deliberately slow and
 sequential; their only job is to pin down tie-breaking, heuristics, and
-floating-point behavior so the JAX/Pallas kernels can be tested against them
+floating-point behavior so the JAX and CUDA kernels can be tested against them
 bit-for-bit (integers) or within the reference's own tolerance (phmm).
 """
 

@@ -1,13 +1,16 @@
 """Batched float64 PairHMM forward on the host (the GKL double fallback).
 
 The reference recomputes testcases whose float result underflows
-MIN_ACCEPTED in double (IntelPairHmmCSource.cpp:75-78).  TPU f64 is
-emulated and slow, so the fallback runs on the host — but the scalar
-oracle is a per-cell Python loop (~seconds per 250x300 case).  This is
-the same recurrence as a vectorized numpy anti-diagonal sweep: each
-cell's value is a fixed 5-op tree (avx-pairhmm-template.h:186 association)
-independent of cell evaluation ORDER, so the diagonal-major sweep is
-bit-identical to the oracle's row-major loop (asserted in tests).
+MIN_ACCEPTED in double (IntelPairHmmCSource.cpp:75-78).  The fallback
+runs on the host — but the scalar oracle is a per-cell Python loop
+(~seconds per 250x300 case).  phmm_forward_sweep is the same recurrence
+as a vectorized numpy anti-diagonal sweep: each cell's value is a fixed
+5-op tree (avx-pairhmm-template.h:186 association) independent of cell
+evaluation ORDER, so the diagonal-major sweep is bit-identical to the
+oracle's row-major loop (asserted in tests).  numpy never contracts a
+multiply-add into an FMA, so in float32 the sweep is also the plain
+reference the CUDA forward kernel (native/cuda/phmm_forward.cu) must
+equal bit for bit.
 """
 
 from __future__ import annotations
@@ -19,8 +22,8 @@ from .oracle import phmm as oracle
 AMBIG = 4
 
 
-def _row_probs_f64(batch):
-    ctx = oracle.get_ctx(np.float64)
+def _row_probs(batch, dtype):
+    ctx = oracle.get_ctx(dtype)
     q = np.asarray(batch["q"]) & 127
     iq = np.asarray(batch["i"]) & 127
     dq = np.asarray(batch["d"]) & 127
@@ -41,17 +44,15 @@ def _row_probs_f64(batch):
     p_my = ph2pr[dq]
     p_yy = ph2pr[cq]
     distm = ph2pr[q]
-    zero_row = np.zeros((b, 1), bool)
-    row0 = np.concatenate([~zero_row * 0], axis=1)  # unused placeholder
-    del row0
     for arr in (p_gapm, p_mx, p_xx, p_my, p_yy, distm):
         arr[:, 0] = 0.0
     return p_mm, p_gapm, p_mx, p_xx, p_my, p_yy, distm, ctx
 
 
-def phmm_forward_f64(batch):
-    """batch: prepare_batch() dict (numpy). Returns raw f64 results [B]
-    bit-identical to oracle.compute_full_prob(..., np.float64) per case."""
+def phmm_forward_sweep(batch, dtype=np.float64):
+    """batch: prepare_batch() dict (numpy). Returns raw results [B] in
+    dtype, bit-identical to oracle.compute_full_prob(..., dtype) per
+    case."""
     rs_row = np.asarray(batch["rs_row"], np.int32)
     hap = np.asarray(batch["hap"], np.int32)
     rslen = np.asarray(batch["rslen"], np.int64)
@@ -59,23 +60,25 @@ def phmm_forward_f64(batch):
     b, rp = rs_row.shape
     hp = hap.shape[1]
 
-    p_mm, p_gapm, p_mx, p_xx, p_my, p_yy, distm, ctx = _row_probs_f64(batch)
+    p_mm, p_gapm, p_mx, p_xx, p_my, p_yy, distm, ctx = _row_probs(batch, dtype)
     one_m_distm = 1.0 - distm
     distm3 = distm / 3.0
-    init_y = np.where(haplen > 0, ctx.initial_constant / haplen.astype(np.float64), 0.0)
+    with np.errstate(divide="ignore"):
+        init_y = np.where(haplen > 0,
+                          ctx.initial_constant / haplen.astype(dtype), 0.0)
 
     r_iota = np.arange(rp)[None, :]
     valid_row = (r_iota >= 1) & (r_iota <= rslen[:, None])
 
-    m1 = np.zeros((b, rp), np.float64)
-    x1 = np.zeros((b, rp), np.float64)
-    y1 = np.zeros((b, rp), np.float64)
+    m1 = np.zeros((b, rp), dtype)
+    x1 = np.zeros((b, rp), dtype)
+    y1 = np.zeros((b, rp), dtype)
     y1[:, 0] = init_y
     m2 = np.zeros_like(m1)
     x2 = np.zeros_like(m1)
     y2 = np.zeros_like(m1)
-    res_m = np.zeros(b, np.float64)
-    res_x = np.zeros(b, np.float64)
+    res_m = np.zeros(b, dtype)
+    res_x = np.zeros(b, dtype)
     lane = np.arange(b)
     rs_amb = rs_row == AMBIG
 
@@ -126,7 +129,7 @@ def phmm_forward_f64(batch):
 
 def phmm_forward_f64_native(batch):
     """Native C double pass (native/phmmf64.cpp), bit-exact with
-    phmm_forward_f64 / the scalar oracle (tests assert equality).
+    phmm_forward_sweep / the scalar oracle (tests assert equality).
     Returns raw f64[B] or None when the lib isn't built."""
     import ctypes
 
@@ -166,31 +169,23 @@ def phmm_forward_f64_native(batch):
 
 
 def phmm_fallback_log10(batch, mask):
-    """log10 likelihoods for the masked (underflowed) lanes, double path.
-
-    Only the [B]-leading keys are sliced: prepare_batch also carries
-    pre-transposed [Rp, B] "*_t" planes for the pallas wrapper, and
-    slicing those along axis 0 with testcase indices is wrong (and
-    crashes outright once a fallback index exceeds r_pad — surfaced by
-    the 550-batch PHMM_SCALE run, where buckets hold thousands of
-    pairs)."""
+    """log10 likelihoods for the masked (underflowed) lanes, double path."""
     idx = np.nonzero(mask)[0]
     if idx.size == 0:
         return np.zeros(0), idx
     ctx = oracle.get_ctx(np.float64)
-    sub = {k: np.asarray(v)[idx] for k, v in batch.items()
-           if not k.endswith("_t")}
+    sub = {k: np.asarray(v)[idx] for k, v in batch.items()}
     raw = phmm_forward_f64_native(sub)  # C pass: bit-exact, ~25x numpy
     if raw is None:
         # numpy diagonal sweep, CHUNKED: it makes ~20 [B, Rp] f64
-        # temporaries per step, and at PHMM_SCALE fallback sizes (1e5
-        # lanes) each is ~50 MB — numpy mmap/munmaps blocks that big
-        # every step (measured page-fault storm, ~0.6 TB churn).
+        # temporaries per step, and at 1e5 fallback lanes each is ~50 MB
+        # — numpy mmap/munmaps blocks that big every step (a page-fault
+        # storm).
         # 2048-lane chunks keep temps ~2 MB; per-lane independence
         # makes chunking value-exact.
         chunk = 2048
         raw = np.empty(idx.size, np.float64)
         for lo in range(0, idx.size, chunk):
             sub_c = {k: v[lo:lo + chunk] for k, v in sub.items()}
-            raw[lo:lo + min(chunk, idx.size - lo)] = phmm_forward_f64(sub_c)
+            raw[lo:lo + min(chunk, idx.size - lo)] = phmm_forward_sweep(sub_c)
     return np.log10(raw) - ctx.log10_initial_constant, idx

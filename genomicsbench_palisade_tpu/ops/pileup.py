@@ -6,7 +6,7 @@ num2countbase via 16-bit IUPAC + 16*is_reverse), medaka_bamiter.c:7-45
 (primary-only, mapq >= 1 filter), main at :498-560 (num_homop=5, per-
 100kb chunks).
 
-TPU-native reformulation: htslib's per-column pileup iterator becomes a
+Reformulation: htslib's per-column pileup iterator becomes a
 two-pass event pipeline —
   pass 1: expand every read's CIGAR into (ref_pos, minor_j, feature)
           events + per-position max-insert lengths (vectorized numpy walk)
@@ -380,8 +380,8 @@ def calculate_pileup_region(bam_path: str, chrom: str, start: int,
                             refs=None):
     """Fused BAM-region pileup: native .bai-bounded decode straight into
     the native event extractor — no Python record objects anywhere
-    (the record-object round-trip made the end-to-end path 4x slower
-    than medaka_counts+htslib, REF_BASELINE pileup row).  Identical
+    (the record-object round-trip dominated the end-to-end path).
+    Identical
     output to read_bam_region + calculate_pileup (tests assert it).
     Returns None when the native lib isn't built; `refs`/`index` are
     optional preloaded read_bam_header/read_bai results."""

@@ -1,6 +1,6 @@
-"""Partial-order alignment on TPU (spoa convex-NW semantics).
+"""Partial-order alignment on the device (spoa convex-NW semantics).
 
-TPU-native design.  Graph topology mutates per added sequence (pointer
+Graph topology mutates per added sequence (pointer
 work — stays on host, see oracle/poa.py PoaGraph); the O(nodes x width)
 convex Needleman-Wunsch DP and its traceback run on device, vmapped over
 many MSA windows in lock-step:
@@ -10,7 +10,7 @@ many MSA windows in lock-step:
 
 DP reformulation (exact, see sisd_alignment_engine.cpp:659-907):
   * F/O (vertical, graph-edge gaps) are max-reductions over <=P padded
-    predecessor rows — pure gathers + VPU max.
+    predecessor rows — pure gathers + vector max.
   * E/Q (horizontal gaps) couple through H within a row; each chain has
     the closed form  E[j] = g + (j-1)e + max_{j'<j}(H[j'] - j'e)
     (a cummax), and the E<->Q coupling converges by iterating the pair of
@@ -36,13 +36,13 @@ NEG_INF = -(1 << 31) + 1024  # spoa kNegativeInfinity
 @functools.lru_cache(maxsize=None)
 def _batched_align(params, w_cap, a_cap, atype="nw", ring_d=0):
     """Cached jit of the vmapped aligner (re-creating the vmap closure per
-    call would re-trace the whole DP every round, ~50 ms host time)."""
+    call would re-trace the whole DP every round)."""
     def run(sc, sl, ga):
         ai, aj, cnt = jax.vmap(
             lambda sc1, sl1, ga1: poa_align_device(
                 sc1, sl1, ga1, params, w_cap, a_cap, atype, ring_d)
         )(sc, sl, ga)
-        # one packed output -> ONE host fetch (each relay fetch ~27 ms)
+        # one packed output -> ONE host fetch
         return jnp.concatenate([ai, aj, cnt[:, None]], axis=1)
 
     return jax.jit(run)
@@ -51,8 +51,7 @@ def _batched_align(params, w_cap, a_cap, atype="nw", ring_d=0):
 def graph_to_arrays(graph, n_cap: int, p_cap: int, code_map=None):
     """Host: PoaGraph -> padded rank-space arrays. Returns None on overflow.
 
-    Vectorized over the edge list (a per-node Python loop cost ~15-30 ms
-    per align round at 32 windows x ~230 nodes).  `code_map` optionally
+    Vectorized over the edge list (no per-node Python loop).  `code_map` optionally
     translates per-graph codes to global ACGT codes in the same pass.
     Pred slots keep the node.in_edges order (edges are appended to
     in_edges at creation, so stable-sorting by end rank preserves it)."""
@@ -145,7 +144,7 @@ def poa_align_device(seqcode, seqlen, garr, params, w_cap, a_cap,
     # E/Q couple within a row only, so their rows are consumed in-place by
     # the traceback bit planes (below) and never stored.  The three
     # matrices live PACKED as one [N+1, 3, w] array: in-loop scatters and
-    # gathers cost ~35 us EACH (PERF.md), so one .at[i].set and one
+    # gathers are costly, so one .at[i].set and one
     # [pred_idx] gather per row replace three of each.
     row0_O = jnp.where(j_iota == 0, 0, NEG_INF)
     row0_Q = jnp.where(j_iota == 0, 0, q + (j_iota - 1) * c)
@@ -165,8 +164,8 @@ def poa_align_device(seqcode, seqlen, garr, params, w_cap, a_cap,
     def _row_planes(h_row, e_row, q_row, f_row, o_row,
                     pred_idx, pred_mask, pm_eu, H_p, F_p, O_p, H_p_sh, prof):
         """The reference traceback's decision predicates for one row, as
-        [w]-wide planes (computed where the pred rows are already in hand —
-        XLA gathers are ~160 MB/s, so the traceback must not re-gather)."""
+        [w]-wide planes (computed where the pred rows are already in hand,
+        so the traceback need not re-gather)."""
         neg1 = jnp.full((1,), NEG_INF, jnp.int32)
         pred_col = pred_idx[:, None]  # [P, 1]
 
@@ -303,11 +302,8 @@ def poa_align_device(seqcode, seqlen, garr, params, w_cap, a_cap,
 
     if ring_d:
         # bounded-pred-distance fast path: MSA graphs keep predecessor
-        # ranks within a few of the node (measured max 4-5 on realistic
-        # windows), so the last ring_d rows ride the scan carry and the
-        # HFO[pred_idx] gather — the fill's bottleneck at reference
-        # window shapes (XLA gathers small random rows at ~4 GB/s
-        # effective) — becomes a one-hot masked sum over ring slots.
+        # ranks within a few of the node on realistic windows, so the last ring_d rows ride the scan carry and the
+        # HFO[pred_idx] gather of small random rows becomes a one-hot masked sum over ring slots.
         # Virtual rank 0 (the boundary row) is selected statically.
         # Callers guarantee rank - pred_rank <= ring_d for pred >= 1
         # (align_batch checks and falls back to the full-matrix path).
@@ -387,8 +383,7 @@ def poa_align_device(seqcode, seqlen, garr, params, w_cap, a_cap,
 
     # ---------------- traceback ----------------
     # The per-step predecessor gathers + .at[cnt].set appends of a naive
-    # device while-loop cost ~35 us EACH inside a loop (PERF.md), which
-    # made traceback 5x the fill.  Instead every decision predicate of the
+    # device while-loop are costly inside a loop.  Instead every decision predicate of the
     # reference's walk (sisd_alignment_engine.cpp backtrack order: diag
     # over preds, vertical over preds with extend-up, horizontal with
     # extend-left, and both repair loops' conditions) was emitted by the
@@ -521,10 +516,6 @@ def align_batch(graphs, seqs, params=(2, -4, -6, -2, -25, -1), n_cap=None, p_cap
                 arr = graph_to_arrays(_EMPTY_GARR_GRAPH, n_cap, p_cap)
         garrs.append(arr)
 
-    # NB: slicing the pred axis to the batch's real max in-degree (4 for
-    # typical MSA graphs) was tried and measured SLOWER than P=16
-    # (1.46 vs 1.10 s on 14 windows x ~800 nodes) — sub-8-sublane
-    # shapes relayout badly; the gather width is not the bottleneck.
     garr_stack = {
         k: jnp.asarray(np.stack([a[k] for a in garrs])) for k in garrs[0]
     }
@@ -556,7 +547,7 @@ def align_batch(graphs, seqs, params=(2, -4, -6, -2, -25, -1), n_cap=None, p_cap
     # traceback planes per window (plus the 3-matrix HFO state), so
     # reference-shaped windows (~1 kb seqs, ~2k nodes) cost ~70 MB each
     # and a big batch must run in sub-batches (the whole-batch call
-    # allocated 34 GB at 64 windows and OOMed the 16 GB chip)
+    # needs 34 GB at 64 windows)
     per_win = (n_cap + 1) * w_cap * 4 * 17
     max_b = max(1, int(2_000_000_000 // max(per_win, 1)))
     if b <= max_b:
@@ -606,11 +597,9 @@ def msa_consensus_host(batches, params=(2, -4, -6, -2, -25, -1),
     precedent.  Identical consensus to msa_consensus_batch / the oracle
     (tests assert it); returns None when the native lib isn't built.
 
-    The device path's fill is HBM-wide but latency-bound at reference
-    window shapes (~750 bp x ~1k nodes: 26.6 seqs/s vs the reference
-    SISD binary's 208.6 on one core, VERDICT r4); graph DP at these
-    sizes is cache-resident CPU work, so the host engine is the
-    production default in cli/poa.py.
+    The device path's fill is latency-bound at reference window shapes
+    (~750 bp x ~1k nodes); graph DP at these sizes is cache-resident CPU
+    work, so the host engine is the production default in cli/poa.py.
     """
     import ctypes
 

@@ -1,6 +1,6 @@
 """Data-parallel kernel wrappers with explicit collectives (shard_map).
 
-Patterns (SURVEY.md §2.4 TPU-native equivalents):
+Patterns (SURVEY.md §2.4 equivalents):
   * phmm/bsw/chain: pure DP — batch dim sharded over the mesh, no
     cross-device traffic inside the step.
   * kmer counting: DP + key-range redistribution — each shard packs and
@@ -18,7 +18,7 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..ops import kmer as kmer_ops
 from ..ops import phmm as phmm_ops
@@ -34,7 +34,7 @@ def phmm_forward_sharded(mesh: Mesh, batch: dict, axis: str = "dp"):
         mesh=mesh,
         in_specs=(specs,),
         out_specs=(P(axis), P(axis), P(axis)),
-        check_rep=False,
+        check_vma=False,
     )
     def step(b):
         return phmm_ops.phmm_forward(b)
@@ -55,7 +55,7 @@ def bsw_batch_sharded(mesh: Mesh, batch: dict, axis: str = "dp"):
         mesh=mesh,
         in_specs=(specs,),
         out_specs={k: P(axis) for k in out_keys},
-        check_rep=False,
+        check_vma=False,
     )
     def step(b):
         return bsw_ops.bsw_batch(b)
@@ -83,7 +83,7 @@ def count_kmers_sharded(mesh: Mesh, bases, lengths, k: int = 17, axis: str = "dp
         mesh=mesh,
         in_specs=(P(axis), P(axis)),
         out_specs=(P(), P(), P(), P(axis), P(axis)),
-        check_rep=False,
+        check_vma=False,
     )
     def step(b, ln):
         hi, lo, valid = kmer_ops.pack_kmers(b, ln, k)
@@ -94,9 +94,8 @@ def count_kmers_sharded(mesh: Mesh, bases, lengths, k: int = 17, axis: str = "dp
         # owner shard = mixed hash of the canonical code mod ndev, a
         # disjoint key-class partition.  NO plain bit range is uniform
         # here: canonical = min(kmer, revcomp) biases the value low
-        # (top-bit bucketing measured 14:1 occupancy skew at scale) AND
-        # biases the last base away from T (low-bit bucketing still
-        # 10:1) — so avalanche the code first (murmur3 fmix32 halves).
+        # (top-bit bucketing skews shard occupancy badly) AND biases the
+        # last base away from T (low-bit bucketing skews too) — so avalanche the code first (murmur3 fmix32 halves).
         # Invalid windows keep their current shard (owner irrelevant,
         # they carry inv=1).
         if bits == 0:
@@ -165,7 +164,7 @@ def fmi_backward_search_sharded(mesh: Mesh, index: dict, enc, lengths,
                                 axis: str = "dp"):
     """Exact-match backward search with the FM-index SHARDED across the
     mesh — the genome index is the suite's true "long context" (SURVEY
-    §2.4/§5): hg38's cp_occ is ~6 GB and outgrows one chip's HBM, so the
+    §2.4/§5): hg38's cp_occ is ~6 GB, a large share of one device, so the
     packed 64-byte block rows are sharded by block range; each occ lookup
     gathers locally on the owner shard and is broadcast with one psum.
     Reads are replicated (tiny next to the index).
@@ -201,7 +200,7 @@ def fmi_backward_search_sharded(mesh: Mesh, index: dict, enc, lengths,
         shard_map, mesh=mesh,
         in_specs=(P(axis, None), P(None, None), P(None), P(None)),
         out_specs=(P(), P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
     def run(pack_local, enc_r, lengths_r, count_r):
         off = jax.lax.axis_index(axis).astype(jnp.int32) * rows_per
@@ -256,7 +255,7 @@ def grm_sharded(mesh: Mesh, geno_i8, two_f, inv_stdev, ok, block: int = 512,
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis)),
         out_specs=(P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
     def step(g, tf, isd, okb):
         sums, counts = _grm_device(g, tf, isd, okb, block=block)
@@ -302,7 +301,7 @@ def chain_dp_halo_sharded(mesh: Mesh, call: dict, w: int, axis: str = "dp"):
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis), P()),
         out_specs=(P(axis), P(axis), P(axis)),
-        check_rep=False,
+        check_vma=False,
     )
     def step(x_l, q_l, qs_l, st_l, gt):
         ax = jax.lax.axis_index(axis)
@@ -350,8 +349,8 @@ def fmi_pipeline_index_sharded(mesh: Mesh, index: dict, enc, readlen,
                                min_seed_len: int = 19, m_cap: int = 96,
                                axis: str = "dp", cp_pack_global=None):
     """The FULL 3-phase SMEM pipeline (ops.fmi_pipeline) over an
-    index SHARDED by cp_occ block range — the multi-chip mode for
-    genome-scale indexes (hg38 cp_occ ~6 GB outgrows one chip's HBM).
+    index SHARDED by cp_occ block range — the multi-device mode for
+    genome-scale indexes (hg38 cp_occ ~6 GB).
 
     Reads and the small index arrays (count, SA meta) are replicated; the
     packed 64-byte occ rows are sharded P(axis); every occ lookup inside
@@ -385,7 +384,7 @@ def fmi_pipeline_index_sharded(mesh: Mesh, index: dict, enc, readlen,
         shard_map, mesh=mesh,
         in_specs=(P(axis, None), P(None, None), P(None)),
         out_specs=(P(None, None), P()),
-        check_rep=False,
+        check_vma=False,
     )
     def run(pack_local, enc_r, readlen_r):
         from ..ops.fmi import ShardAxis
@@ -414,7 +413,7 @@ def poa_align_sharded(mesh: Mesh, seq_arr, seq_len, garr_stack,
         shard_map, mesh=mesh,
         in_specs=(P(axis), P(axis), gspecs),
         out_specs=P(axis),
-        check_rep=False,
+        check_vma=False,
     )
     def step(sc, sl, ga):
         ai, aj, cnt = jax.vmap(
@@ -442,7 +441,7 @@ def abea_fill_sharded(mesh: Mesh, ev_pad, ranks_pad, n_events, n_kmers,
         in_specs=(P(axis), P(axis), P(axis), P(axis), P(None), P(None),
                   P(None), P(axis), P(axis), P(axis), P(axis)),
         out_specs=(P(axis), P(axis), P(axis), P(axis)),
-        check_rep=False,
+        check_vma=False,
     )
     def step(e, r, ne, nk, lm_r, ls_r, lls_r, sc, sh, lp, tv):
         return jax.vmap(

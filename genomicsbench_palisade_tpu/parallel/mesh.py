@@ -1,8 +1,8 @@
 """Mesh construction and data-parallel batch sharding.
 
 The genomics kernels are embarrassingly batch-parallel (the reference used
-OpenMP dynamic scheduling over read batches, fmi.cpp:241-253 etc.); on TPU
-that becomes a 1-D (or hosts x chips 2-D) mesh with the batch dimension
+OpenMP dynamic scheduling over read batches, fmi.cpp:241-253 etc.); here
+that becomes a 1-D (or hosts x devices 2-D) mesh with the batch dimension
 sharded and results merged by collectives where needed (k-mer histograms:
 psum; SMEM/alignment assembly: all_gather).
 """
@@ -40,11 +40,6 @@ def shard_batch(batch: dict, mesh: Mesh, axis: str = DP_AXIS):
     out = {}
     n_orig = None
     for key, arr in batch.items():
-        if key.endswith("_t"):
-            # transposed pallas-layout duplicates (batch on axis 1) —
-            # the sharded DP path runs the scan engine, which rebuilds
-            # its tables from the canonical [B, ...] arrays
-            continue
         arr = np.asarray(arr)
         padded, n = pad_to_multiple(arr, ndev, axis=0)
         n_orig = n if n_orig is None else n_orig

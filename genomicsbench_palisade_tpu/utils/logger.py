@@ -8,7 +8,7 @@ kmer-cnt: a singleton logger with error/warning/info/debug levels,
 VertexIndex::outputProgress, vertex_index.cpp:236), and peak-RSS
 reporting (benchmarks/kmer-cnt/memory_info.h getPeakRSS, printed at
 kmer_cnt.cpp:282-283 and msa_spoa_omp.cpp:499).  This module provides
-the same capabilities for every driver in the TPU build.
+the same capabilities for every driver here.
 """
 
 from __future__ import annotations

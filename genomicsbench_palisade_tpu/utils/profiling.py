@@ -2,12 +2,12 @@
 
 The reference brackets each benchmark's kernel region with VTune ITT
 pause/resume hooks (`__itt_pause()/__itt_resume()`, fmi.cpp:46-50,229-231)
-and PARSEC ROI markers, driven by scripts/vtune.pc.sh.  The TPU-native
-equivalent is jax.profiler: `roi()` wraps the kernel region in a profiler
+and PARSEC ROI markers, driven by scripts/vtune.pc.sh.  The equivalent
+here is jax.profiler: `roi()` wraps the kernel region in a profiler
 trace (written as a TensorBoard/xprof trace) when profiling is enabled,
 and `annotate()` marks sub-phases inside it.
 
-Enable via GENOMICS_TPU_TRACE_DIR=/path or roi(trace_dir=...).  Disabled,
+Enable via GENOMICS_TRACE_DIR=/path or roi(trace_dir=...).  Disabled,
 both are zero-overhead no-ops — mirroring the reference's pause-until-ROI
 behavior.
 """
@@ -17,7 +17,7 @@ from __future__ import annotations
 import contextlib
 import os
 
-ENV_VAR = "GENOMICS_TPU_TRACE_DIR"
+ENV_VAR = "GENOMICS_TRACE_DIR"
 
 
 @contextlib.contextmanager
@@ -47,7 +47,7 @@ def annotate(name: str):
 
 
 def device_memory_stats() -> dict:
-    """Per-device HBM usage (the TPU analog of the peak-RSS reports)."""
+    """Per-device memory usage (the device analog of the peak-RSS reports)."""
     import jax
 
     out = {}

@@ -5,8 +5,8 @@
 // -ffp-contract=off forbids FMA contraction), the emission sum and the
 // backtrack-seed search accumulate in float64 exactly like the host code).
 //
-// Called per GROUP of same-bucket reads from _traceback_batch; the numpy
-// lockstep walk (~170 ms / 64x500bp group) drops to ~2 ms here.
+// Called per GROUP of same-bucket reads from _traceback_batch, in place
+// of the numpy lockstep walk.
 
 #include <cstdint>
 #include <cmath>

@@ -13,8 +13,8 @@
 // inner loop is pure stride-1 (the per-kmer scaled gaussian params and
 // the reversed event stream are precomputed once per read, turning the
 // rank/event gathers into contiguous loads the compiler vectorizes).
-// The reference's scalar fill measures ~28 Mcells/s on this VM
-// (REF_BASELINE abea); this loop is the same math, vector-width wide.
+// The reference's fill is scalar; this loop is the same math,
+// vector-width wide.
 
 #include <cmath>
 #include <cstdint>

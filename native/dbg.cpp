@@ -61,9 +61,8 @@ struct Graph {
 // Fast-path graph for the common alphabet (every ref/read char in
 // ACGTN, k <= 21): kmers become rolling 3-bit-packed u64 keys — O(1)
 // per window instead of an O(k) string assign + hash — looked up in an
-// open-addressing table (the std::unordered_map<string> path measured
-// ~90 ns/op, losing to the reference's custom bucket dict,
-// REF_BASELINE dbg row).  Node insertion order, colour/weight merge
+// open-addressing table (a std::unordered_map<string> path loses to
+// the reference's custom bucket dict).  Node insertion order, colour/weight merge
 // and edge creation order are IDENTICAL to the slow path (tests assert
 // path-level equality vs the Python spec either way).
 struct FastGraph {

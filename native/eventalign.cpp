@@ -345,8 +345,7 @@ extern "C" int64_t gt_eventalign_realign(
 // ops/oracle/eventalign.py::scaling_read — DOUBLE accumulation in the
 // oracle's sequential order (numpy pairwise sums would drift the last
 // ulp and flip QC gates), same M/E state rule (prev kmer rank over the
-// expansion), same f32 stores.  The Python pass measured ~10 ms/read at
-// the REF_BASELINE eventalign workload.
+// expansion), same f32 stores.  This replaces a per-read Python pass.
 // Returns 0 ok, 2 FAILED_ALIGNMENT, 1 FAILED_CALIBRATION,
 // 4 FAILED_QUALITY_CHK (f5c.h:49-51 flag values).
 extern "C" int32_t gt_eventalign_scaling(

@@ -1,4 +1,4 @@
-// Native host I/O for the TPU genomics framework: fast FASTA/FASTQ
+// Native host I/O for the genomics framework: fast FASTA/FASTQ
 // parsing + 2-bit encoding (the role kseq.h/bseq plays in the reference's
 // L1 layer — reimplemented, not ported). Exposed via a C ABI for ctypes.
 //

@@ -1,13 +1,10 @@
 // Host FM-index SMEM search engine (bwa-mem2 3-phase semantics).
 //
 // Why this exists: the FM backward search is random-access pointer
-// chasing — XLA's gather on TPU sustains ~300 MB/s on random 64-byte
-// rows (a memory-system limit, tools/occ_gather_experiment.py), so the
-// device path tops out near 1k reads/s at genome scale, while a CPU
-// core with ~16-way miss interleaving services a row every ~25 ns.
-// The framework therefore offers both engines (SURVEY.md §3.1 (a)):
-// this native one for seeding throughput, the TPU one for integration
-// with on-device pipelines.  Semantics are transcribed from the pinned
+// chasing over 64-byte occ rows, which a CPU core with ~16-way miss
+// interleaving services well.  The framework therefore offers both
+// engines (SURVEY.md §3.1 (a)): this native one for seeding throughput,
+// the device one for integration with on-device pipelines.  Semantics are transcribed from the pinned
 // oracle (genomicsbench_palisade_tpu/ops/oracle/fmi.py, itself cited to
 // FMI_search.cpp:986-1326) — NOT from the reference source.
 //
@@ -240,9 +237,8 @@ struct FmiResult {
 // Interleaved (software-pipelined) engine.
 //
 // At genome scale every occ row is a cache+TLB miss: the serial state
-// machine above is latency-bound at ~220 ns per dependent row on this
-// class of machine, while ~16 independent streams sustain ~25 ns/row
-// (9x memory-level parallelism).  The reference gets its single-thread
+// machine above is latency-bound on each dependent row, while ~16
+// independent streams overlap their misses (memory-level parallelism).  The reference gets its single-thread
 // throughput the same way — _mm_prefetch pipelining across reads in
 // getSMEMsOnePosOneThread (FMI_search.cpp:986, ENABLE_PREFETCH) — and
 // this engine is the same idea expressed as C++20 coroutines: G reads

@@ -3,18 +3,12 @@
 //
 // Counting at dataset scale is a random-access hash workload — the same
 // CPU-shaped regime as FM-index seeding, where this framework already
-// ships a host engine beside the TPU one.  The device sort-reduce
-// pipeline (ops/kmer.py) stays the bench/multi-chip path; its
-// accumulator merge is bound by the chip's ~27M elements/s sort rate
-// (~11 Mbases/s at GB scale).  This single pass with a rolling
-// canonical code and an open-addressing table measures ~82 Mbases/s
-// while the table fits cache (12 Mbp regime, REF_BASELINE kmer row —
-// ~47x the reference's Flye counter on the same reads, both sides
-// quiet), 21-23 Mbases/s at 100 Mbp / 25.7M distinct, and 18 at
-// 1.06 Gbp / 38M distinct where every probe is a DRAM round-trip
-// (prefetch-blocked probing + interleaved 16 B slots keep those
-// regimes memory-level-parallel and one-line-per-probe;
-// KMER_SCALE.json records the Gbp regime).
+// ships a host engine beside the device one.  The device sort-reduce
+// pipeline (ops/kmer.py) stays the bench/multi-device path.  This
+// single pass uses a rolling canonical code and an open-addressing
+// table; at Gbp scale every probe is a DRAM round-trip, and
+// prefetch-blocked probing + interleaved 16 B slots keep that regime
+// memory-level-parallel and one-line-per-probe.
 //
 // Semantics are IDENTICAL to ops/kmer.count_kmers (tests pin equality):
 // 2-bit codes with the N->3 quirk, len-k windows per read (the
@@ -56,8 +50,7 @@ int32_t gt_kmer_count(const int8_t* codes, const int64_t* offs,
     // interleaved 16 B slots (key u64 + cnt u32 + pad): ONE cache line
     // and ONE TLB page per probe instead of the two the split
     // keys[]/cnt[] arrays paid — at GB scale every probe is a miss, so
-    // line count is the wall (A/B at 100 Mbp / 25.7M distinct:
-    // 17.4-18.5 -> 21.2-22.9 Mbases/s, metrics identical)
+    // line count is the wall
     struct Slot { uint64_t key; uint32_t cnt; uint32_t pad; };
     Slot* tab = (Slot*)huge_alloc((size_t)slots * sizeof(Slot));
     if (!tab) return 2;
@@ -84,7 +77,7 @@ int32_t gt_kmer_count(const int8_t* codes, const int64_t* offs,
         occ += n_win;
         // block the windows: roll a batch of keys + prefetch their hash
         // slots, THEN probe — at GB scale every probe is a cache+TLB
-        // miss (~200 ns serial), and ~BLK-way memory-level parallelism
+        // miss, and ~BLK-way memory-level parallelism
         // is the same trick as the fmi host engine's coroutine
         // scheduler (native/fmsearch.cpp), shaped for a tight loop.
         constexpr int32_t BLK = 48;

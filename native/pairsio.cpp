@@ -1,4 +1,4 @@
-// Native pair-file I/O + bsw wire packing for the TPU genomics framework.
+// Native pair-file I/O + bsw wire packing for the genomics framework.
 //
 // The bsw driver's input is the reference's 3-line record format
 // (benchmarks/bsw/main_banded.cpp:148-202 loadPairs): an "<h0> ..." score
@@ -6,8 +6,7 @@
 // (10.6M pairs / 3.8 GB, scripts/bsw_large:5-8) the vectorized-numpy
 // parser spends ~22 s finding newlines and ~4 s parsing h0 digits, and
 // the per-dispatch chunk prep (flat gather + mask scatter + 2-bit pack)
-// costs another ~0.44 s x 162 chunks — together more than the TPU kernel
-// itself.  These are single-pass, memory-bandwidth-bound loops: they
+// costs another ~0.44 s x 162 chunks.  These are single-pass, memory-bandwidth-bound loops: they
 // belong in C++ (same division of labor as the reference's C++ driver
 // around its SIMD kernel).
 //
@@ -67,7 +66,7 @@ void gt_pairs_parse(const uint8_t* buf, int64_t nbytes, int64_t n,
 
 // 2-bit-pack n rows of base codes for the bsw wire format: row i holds
 // codes[off[i] : off[i]+len[i]] packed 4 bases/byte (little-endian within
-// the byte, matching ops/bsw_pallas.py pack_codes_2bit), zero-filled to
+// the byte, matching ops/bsw.py pack_codes_2bit), zero-filled to
 // pad/4 bytes.  `bias` is subtracted from every byte first (48 when off[]
 // indexes the raw ASCII-digit file buffer, 0 for already-decoded codes).
 // Returns the count of out-of-range codes (after bias, outside 0..3);
@@ -105,14 +104,14 @@ int64_t gt_bsw_pack_rows(const int8_t* codes, const int64_t* off,
 }
 
 // Fused ASCII-digit decode: out = (int8)(in - 48) in one pass.  numpy's
-// astype + in-place subtract is two full passes over the buffer (~22 s
-// on the 3.8 GB bsw_large file on this VM); g++ vectorizes this one.
+// astype + in-place subtract is two full passes over the buffer; g++
+// vectorizes this one.
 void gt_sub48(const uint8_t* in, int64_t n, int8_t* out) {
     for (int64_t i = 0; i < n; i++) out[i] = (int8_t)(in[i] - 48);
 }
 
 // Raw int8 fallback rows: row i = codes[off[i] : off[i]+len[i]] - bias,
-// filled with `fill` to pad columns (the kernel's ambiguous-base value 4).
+// filled with `fill` to pad columns (the ambiguous-base value 4).
 void gt_bsw_pad_rows(const int8_t* codes, const int64_t* off,
                      const int32_t* len, int64_t n, int64_t pad,
                      int32_t bias, int8_t fill, int8_t* out) {
@@ -126,169 +125,6 @@ void gt_bsw_pad_rows(const int8_t* codes, const int64_t* off,
             for (int64_t j = 0; j < L; j++) dst[j] = (int8_t)(src[j] - bias);
         }
         memset(dst + L, fill, (size_t)(pad - L));
-    }
-}
-
-// Chain 8-byte delta wire (ops/chain.py _encode_delta_inputs): one pass
-// over the packed lane planes producing w1 = dx|dqi<<16, w2 =
-// dst|qspan<<16 plus the sparse correction stream (call boundaries,
-// oversized deltas, slope changes).  The numpy encode is ~10 full-plane
-// passes (~1 s at 12M anchors on this VM); this is one.
-//
-// Corrections are written up to c_cap; the true count is always
-// returned, so a caller whose guess was too small re-calls with the
-// exact size (one pass in the normal case).
-int64_t gt_chain_encode(const int32_t* x, const int32_t* qi,
-                        const int32_t* st, const int32_t* slope,
-                        const int32_t* qspan, int64_t lanes, int64_t n,
-                        int64_t c_cap, int32_t* w1, int32_t* w2,
-                        int32_t* c_lane, int32_t* c_pos, int32_t* c_x,
-                        int32_t* c_qi, int32_t* c_st, int32_t* c_m) {
-    int64_t k = 0;
-    for (int64_t l = 0; l < lanes; l++) {
-        const int64_t base = l * n;
-        int32_t px = 0, pqi = 0, pst = 0, pm = 0;
-        for (int64_t i = 0; i < n; i++) {
-            int32_t dx = (int32_t)((uint32_t)x[base + i] - (uint32_t)px);
-            int32_t dqi = (int32_t)((uint32_t)qi[base + i] - (uint32_t)pqi);
-            int32_t dst = (int32_t)((uint32_t)st[base + i] - (uint32_t)pst);
-            int32_t dm = (int32_t)((uint32_t)slope[base + i]
-                                   - (uint32_t)pm);
-            px = x[base + i];
-            pqi = qi[base + i];
-            pst = st[base + i];
-            pm = slope[base + i];
-            bool ok_x = dx >= 0 && dx < (1 << 16);
-            bool ok_qi = dqi >= -(1 << 15) && dqi < (1 << 15);
-            bool ok_st = dst >= 0 && dst < (1 << 16);
-            bool esc = !(ok_x && ok_qi && ok_st) || dm != 0;
-            if (esc) {
-                if (k < c_cap) {
-                    c_lane[k] = (int32_t)l;
-                    c_pos[k] = (int32_t)i;
-                    c_x[k] = ok_x ? 0 : dx;
-                    c_qi[k] = ok_qi ? 0 : dqi;
-                    c_st[k] = ok_st ? 0 : dst;
-                    c_m[k] = dm;
-                }
-                k++;
-                if (!ok_x) dx = 0;
-                if (!ok_qi) dqi = 0;
-                if (!ok_st) dst = 0;
-            }
-            w1[base + i] = (dx & 0xFFFF) | (dqi << 16);
-            w2[base + i] = (dst & 0xFFFF)
-                           | ((qspan[base + i] & 0xFF) << 16);
-        }
-    }
-    return k;
-}
-
-// Fused lane-pack + delta-encode: reads each call's 4-byte input arrays
-// IN PLACE (pointer table) and writes the 8-byte wire directly at its
-// (lane, offset) placement — the intermediate [lanes, n_pad] i32 planes
-// the Python pack built (and the encode re-read) never exist.  Calls
-// MUST arrive sorted by (lane, offset) with contiguous packing from
-// offset 0 (the greedy balancer's layout); per-lane delta state resets
-// at each lane change, and tail padding is the memset-0 wire (delta 0 =
-// constants after decode; every padded position is sliced away on
-// unpack).  st_eff gets the call offset added in the same pass.
-// Same cap-retry contract as gt_chain_encode.
-int64_t gt_chain_pack_encode(
-    const int64_t* xp, const int64_t* qip, const int64_t* stp,
-    const int64_t* qsp, const int32_t* call_n, const int32_t* call_lane,
-    const int32_t* call_off, const int32_t* call_slope, int64_t n_calls,
-    int64_t lanes, int64_t n_pad, int64_t c_cap, int32_t* w1,
-    int32_t* w2, int32_t* c_lane, int32_t* c_pos, int32_t* c_x,
-    int32_t* c_qi, int32_t* c_st, int32_t* c_m) {
-    memset(w1, 0, (size_t)(lanes * n_pad) * 4);
-    memset(w2, 0, (size_t)(lanes * n_pad) * 4);
-    int64_t k = 0;
-    int32_t cur_lane = -1;
-    int32_t px = 0, pqi = 0, pst = 0, pm = 0;
-    for (int64_t c = 0; c < n_calls; c++) {
-        const int32_t* cx = (const int32_t*)(uintptr_t)xp[c];
-        const int32_t* cqi = (const int32_t*)(uintptr_t)qip[c];
-        const int32_t* cst = (const int32_t*)(uintptr_t)stp[c];
-        const int32_t* cqs = (const int32_t*)(uintptr_t)qsp[c];
-        const int32_t lane = call_lane[c];
-        const int32_t off = call_off[c];
-        const int32_t m = call_slope[c];
-        const int64_t nn = call_n[c];
-        if (lane != cur_lane) {
-            cur_lane = lane;
-            px = pqi = pst = pm = 0;
-        }
-        int32_t* o1 = w1 + (int64_t)lane * n_pad + off;
-        int32_t* o2 = w2 + (int64_t)lane * n_pad + off;
-        for (int64_t i = 0; i < nn; i++) {
-            const int32_t xv = cx[i];
-            const int32_t qv = cqi[i];
-            const int32_t sv = cst[i] + off;
-            int32_t dx = (int32_t)((uint32_t)xv - (uint32_t)px);
-            int32_t dqi = (int32_t)((uint32_t)qv - (uint32_t)pqi);
-            int32_t dst = (int32_t)((uint32_t)sv - (uint32_t)pst);
-            int32_t dm = (int32_t)((uint32_t)m - (uint32_t)pm);
-            px = xv;
-            pqi = qv;
-            pst = sv;
-            pm = m;
-            bool ok_x = dx >= 0 && dx < (1 << 16);
-            bool ok_qi = dqi >= -(1 << 15) && dqi < (1 << 15);
-            bool ok_st = dst >= 0 && dst < (1 << 16);
-            if (!(ok_x && ok_qi && ok_st) || dm != 0) {
-                if (k < c_cap) {
-                    c_lane[k] = lane;
-                    c_pos[k] = (int32_t)(off + i);
-                    c_x[k] = ok_x ? 0 : dx;
-                    c_qi[k] = ok_qi ? 0 : dqi;
-                    c_st[k] = ok_st ? 0 : dst;
-                    c_m[k] = dm;
-                }
-                k++;
-                if (!ok_x) dx = 0;
-                if (!ok_qi) dqi = 0;
-                if (!ok_st) dst = 0;
-            }
-            o1[i] = (dx & 0xFFFF) | (dqi << 16);
-            o2[i] = (dst & 0xFFFF) | ((cqs[i] & 0xFF) << 16);
-        }
-    }
-    return k;
-}
-
-// Per-call unpack of the fetched chain output block ([lane] rows of
-// scores i32 | parent u16-delta words | optional peaks i32): writes each
-// call's score slice, reconstructs call-local i64 parents from the
-// window deltas (par = i - delta, -1 when delta 0), and copies peaks.
-// Replaces the full-plane numpy delta decode + per-call where/copies
-// (~1.4 s at 12M anchors, tools/chain_phase_probe.py unpack_s).
-void gt_chain_unpack(const int32_t* fetched, int64_t lane_tile,
-                     int64_t n_pad, int32_t want_peaks,
-                     const int64_t* sc_out, const int64_t* par_out,
-                     const int64_t* pk_out, const int32_t* call_n,
-                     const int32_t* call_lane, const int32_t* call_off,
-                     int64_t n_calls) {
-    const int64_t row_w = n_pad + n_pad / 2 + (want_peaks ? n_pad : 0);
-    for (int64_t c = 0; c < n_calls; c++) {
-        const int64_t lane = call_lane[c];
-        const int64_t off = call_off[c];
-        const int64_t nn = call_n[c];
-        const int32_t* row = fetched + lane * row_w;
-        const int32_t* dwp = row + n_pad;
-        int32_t* sc = (int32_t*)(uintptr_t)sc_out[c];
-        int64_t* par = (int64_t*)(uintptr_t)par_out[c];
-        memcpy(sc, row + off, (size_t)nn * 4);
-        for (int64_t i = 0; i < nn; i++) {
-            const int64_t g = off + i;
-            const int32_t w = dwp[g >> 1];
-            const int32_t d = (g & 1) ? ((w >> 16) & 0xFFFF) : (w & 0xFFFF);
-            par[i] = (d > 0 && g >= d) ? i - d : -1;
-        }
-        if (want_peaks) {
-            int32_t* pk = (int32_t*)(uintptr_t)pk_out[c];
-            memcpy(pk, row + n_pad + n_pad / 2 + off, (size_t)nn * 4);
-        }
     }
 }
 

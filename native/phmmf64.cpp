@@ -1,7 +1,7 @@
 // Native float64 PairHMM forward — the GKL double-fallback pass
 // (IntelPairHmmCSource.cpp:75-78 recomputes underflowed testcases in
-// double; the reference pays this in C, and our numpy diagonal sweep
-// measured ~25 min at PHMM_SCALE fallback volumes).  Semantic contract
+// double; the reference pays this in C, and the numpy diagonal sweep
+// is far slower at dataset-scale fallback volumes).  Semantic contract
 // is ops/oracle/phmm.py::compute_full_prob(dtype=float64): identical
 // per-cell op tree (the computeMXY association,
 // avx-pairhmm-template.h:186), row-major evaluation, sequential

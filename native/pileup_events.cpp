@@ -127,8 +127,7 @@ extern "C" void gt_pileup_free(void* hp) { delete static_cast<Handle*>(hp); }
 // coverage + insertion widths + the column layout WITHOUT touching
 // bases; pass 2 (fill) re-walks emitting each event straight into the
 // caller-allocated matrix.  No per-event vectors (the handle-based
-// path above stores 40 B/event and measured 94 ms per 100 kb chunk;
-// this is the production region path).
+// path above stores 40 B/event; this is the production region path).
 
 namespace {
 

@@ -37,7 +37,7 @@ Scratch& scratch() {
 // predecessor-row passes as standalone functions with __restrict
 // parameters: distinct matrix rows never overlap, but through derived
 // pointers the vectorizer needed >10 alias-version checks and gave up
-// (measured: the whole fill ran scalar).
+// (the whole fill ran scalar).
 void pred_first(int32_t* __restrict Fi, int32_t* __restrict Oi,
                 int32_t* __restrict Hi, const int32_t* __restrict Hp,
                 const int32_t* __restrict Fp, const int32_t* __restrict Op,

@@ -114,18 +114,6 @@ def test_abea_native_traceback_matches_python(model):
     assert want[-1] == [] and any(want[:-1])
 
 
-def test_abea_pallas_wrapper_cpu_fallback(model):
-    """align_events_batch scan path (use_native=False on CPU) — the jnp
-    reference route kept beneath the native/pallas engines."""
-    rng = np.random.default_rng(9)
-    seq = "".join(rng.choice(list("ACGT"), 80))
-    ev = _synth(rng, model, seq)
-    got = A.align_events_batch([seq], [ev], model, [1.0], [0.0],
-                               use_native=False)
-    want = [AO.align(seq, ev, model, 1.0, 0.0)]
-    assert got == want
-
-
 def test_abea_native_engine_matches_oracle(model):
     """Native host fill (native/abeafill.cpp, the production default)
     must be bit-identical to the cited oracle — alignments AND QC
@@ -169,77 +157,14 @@ def test_abea_native_engine_is_default_dispatch(model):
     assert got == want == [AO.align(seq, ev, model, 1.0, 0.0)]
 
 
-def test_abea_pallas_interpret_matches_oracle(model):
-    """The pallas band-fill + on-device walk in TPU interpret mode vs the
-    cited oracle — CPU-side coverage of the production TPU route
-    (chip_parity re-proves it on hardware with the f5c fixtures)."""
-    from jax.experimental.pallas import tpu as pltpu
-
+def test_abea_scan_engine_matches_oracle(model):
+    """align_events_batch with the native fill skipped runs the device
+    band-fill scan (vmapped over a shared bucket) + host traceback; two
+    reads must match the cited oracle exactly."""
     rng = np.random.default_rng(31)
     seqs = ["".join(rng.choice(list("ACGT"), 80)) for _ in range(2)]
     evs = [_synth(rng, model, s) for s in seqs]
-    with pltpu.force_tpu_interpret_mode():
-        got = A.align_events_batch(seqs, evs, model, [1.0] * 2, [0.0] * 2,
-                                   use_pallas=True)
+    got = A.align_events_batch(seqs, evs, model, [1.0] * 2, [0.0] * 2,
+                               use_native=False)
     want = [AO.align(s, e, model, 1.0, 0.0) for s, e in zip(seqs, evs)]
     assert got == want
-
-
-def test_abea_pallas_chunked_matches_single_chunk(model):
-    """Long-read support streams trace rows in chunk_rows slices with the
-    band ring + carry persisted across grid steps (ops/abea_pallas.py).
-    A tiny chunk_rows forces many cross-chunk handoffs on a short read;
-    the packed traces and walk outputs must be bit-identical to the
-    single-chunk run, and the decoded alignment oracle-exact."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from genomicsbench_palisade_tpu.ops import abea_pallas as AP
-
-    rng = np.random.default_rng(33)
-    seqs = ["".join(rng.choice(list("ACGT"), 120)) for _ in range(2)]
-    evs = [_synth(rng, model, s) for s in seqs]
-    k = AO.KMER_SIZE
-    e_buck = A._bucket(max(len(e) for e in evs))
-    k_buck = A._bucket(max(len(s) - k + 1 for s in seqs))
-    n_bands = e_buck + k_buck + 2
-    tbl_len = AP._round_up(max(e_buck, k_buck) + 2 * AP.ALN_BANDWIDTH,
-                           AP.LANES)
-    lm = model["level_mean"].astype(np.float32)
-    ls = model["level_stdv"].astype(np.float32)
-    lls = model["level_log_stdv"].astype(np.float32)
-    evs_t, gms, stds, lstds, lps = [], [], [], [], []
-    trim_tbl = None
-    for s, e in zip(seqs, evs):
-        ev_pad, ranks_pad, lp_consts, trim_vals, _ = A._prep_read(
-            s, e, AP.ALN_BANDWIDTH, k, e_buck, k_buck)
-        if trim_tbl is None:
-            trim_tbl = np.zeros(AP._round_up(len(trim_vals), AP.LANES),
-                                np.float32)
-            trim_tbl[: len(trim_vals)] = trim_vals
-
-        def padded(a):
-            out = np.zeros(tbl_len, np.float32)
-            out[: len(a)] = a
-            return out
-
-        evs_t.append(padded(ev_pad))
-        gms.append(padded(lm[ranks_pad]))
-        stds.append(padded(ls[ranks_pad]))
-        lstds.append(padded(lls[ranks_pad]))
-        lps.append(lp_consts)
-    args = (np.stack(evs_t), np.stack(gms), np.stack(stds),
-            np.stack(lstds),
-            np.array([len(e) for e in evs], np.int32),
-            np.array([len(s) - k + 1 for s in seqs], np.int32),
-            np.stack(lps), trim_tbl)
-    with pltpu.force_tpu_interpret_mode():
-        tr_one = np.asarray(AP.abea_fill_bands_pallas(
-            *args, n_bands=n_bands, tbl_len=tbl_len, chunk_rows=1 << 20))
-        tr_chunked = np.asarray(AP.abea_fill_bands_pallas(
-            *args, n_bands=n_bands, tbl_len=tbl_len, chunk_rows=64))
-        assert np.array_equal(tr_one, tr_chunked)
-        w_one = np.asarray(AP.abea_walk_pallas(
-            tr_one, args[4], args[5], n_bands=n_bands, chunk_rows=1 << 20))
-        w_chunked = np.asarray(AP.abea_walk_pallas(
-            tr_one, args[4], args[5], n_bands=n_bands, chunk_rows=64))
-    assert np.array_equal(w_one, w_chunked)

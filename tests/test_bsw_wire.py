@@ -1,10 +1,9 @@
-"""Pallas bsw kernel (interpret mode on CPU) vs the JAX scan reference."""
+"""bsw driver dispatch: the stacked scan, the 2-bit wire and the SoA
+parser, against the plain scan, the oracle and the reference goldens."""
 
 import numpy as np
-from jax.experimental.pallas import tpu as pltpu
 
 from genomicsbench_palisade_tpu.ops import bsw as W
-from genomicsbench_palisade_tpu.ops import bsw_pallas as WP
 
 
 def _random_pairs(rng, b, ql_max=60, tl_max=90):
@@ -22,58 +21,56 @@ def _random_pairs(rng, b, ql_max=60, tl_max=90):
     return pairs
 
 
-def test_bsw_pallas_matches_scan_bitexact():
+def test_score_pairs_raw_route_matches_scan():
+    """cli score_pairs on pairs with ambiguous bases (codes >= 4, which
+    the 2-bit wire cannot carry) takes the raw-codes route and matches
+    the scan engine bit-exactly."""
+    from genomicsbench_palisade_tpu.cli.bsw import score_pairs
+
     rng = np.random.default_rng(0)
     pairs = _random_pairs(rng, 128)
     batch = W.prepare_pairs(pairs, q_pad=64, t_pad=96)
     want = {k: np.asarray(v) for k, v in W.bsw_batch(batch).items()}
-    with pltpu.force_tpu_interpret_mode():
-        got = {k: np.asarray(v) for k, v in WP.bsw_batch_pallas(batch).items()}
-    for key in ("score", "qle", "tle", "gtle", "gscore", "max_off"):
+    got = score_pairs(pairs)
+    for key in W.OUT_ORDER:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
-def test_bsw_pallas_matches_oracle():
+def test_bsw_stacked_matches_oracle():
+    """bsw_batch_stacked (the driver's dispatch) vs the scalar oracle."""
     from genomicsbench_palisade_tpu.ops.oracle import bsw as WO
 
     rng = np.random.default_rng(1)
     pairs = _random_pairs(rng, 128)
     batch = W.prepare_pairs(pairs, q_pad=64, t_pad=96)
-    with pltpu.force_tpu_interpret_mode():
-        got = {k: np.asarray(v) for k, v in WP.bsw_batch_pallas(batch).items()}
+    got = np.asarray(W.bsw_batch_stacked(batch))
     for i, (q, t, h0) in enumerate(pairs):
         want = WO.scalar_banded_swa(q, t, h0, WO.DEFAULT_PARAMS)
-        assert got["score"][i] == want["score"], i
-        assert got["qle"][i] == want["qle"], i
-        assert got["tle"][i] == want["tle"], i
-        assert got["gtle"][i] == want["gtle"], i
-        assert got["gscore"][i] == want["gscore"], i
-        assert got["max_off"][i] == want["max_off"], i
+        for row, key in enumerate(W.OUT_ORDER):
+            assert got[row, i] == want[key], (i, key)
 
 
-def test_bsw_pallas_vs_reference_fixtures(fixtures_dir):
-    """All 300 reference-binary golden cases through the PALLAS kernel
-    (interpret mode) at production-shape padding — previously goldens
-    only pinned the scan engine."""
+def test_bsw_scan_vs_reference_fixtures_production_padding(fixtures_dir):
+    """All 300 reference-binary golden cases through the stacked scan at
+    the driver's bucket padding (q_pad/t_pad 512, batch a multiple of
+    128 as score_pairs_soa chunks it)."""
     import json
 
     cases = json.load(open(fixtures_dir / "bsw_golden.json"))
     pairs = [(np.array(c["query"]), np.array(c["target"]), c["h0"])
              for c in cases]
-    while len(pairs) % 128:  # kernel batches are full lane tiles
+    while len(pairs) % 128:
         pairs.append(pairs[0])
-    batch = W.prepare_pairs(pairs)
-    with pltpu.force_tpu_interpret_mode():
-        got = {k: np.asarray(v) for k, v in WP.bsw_batch_pallas(batch).items()}
+    batch = W.prepare_pairs(pairs, q_pad=512, t_pad=512)
+    got = np.asarray(W.bsw_batch_stacked(batch))
     for i, c in enumerate(cases):
-        for key in ("score", "qle", "tle", "gtle", "gscore", "max_off"):
-            assert int(got[key][i]) == c["out"][key], (i, key)
+        for row, key in enumerate(W.OUT_ORDER):
+            assert int(got[row, i]) == c["out"][key], (i, key)
 
 
 def test_bsw_packed_wire_matches_raw():
     """2-bit wire format (pack on host, unpack on device) is bit-exact vs
-    the raw int8 path, and score_pairs routes base-only buckets through
-    it (ambiguous codes >= 4 fall back to raw)."""
+    the raw int8 path."""
     rng = np.random.default_rng(7)
     pairs = []
     for _ in range(128):
@@ -100,28 +97,23 @@ def test_bsw_packed_wire_matches_raw():
     # host pack -> device unpack round-trips to the exact raw padded array
     import jax.numpy as jnp
 
-    up_q = np.asarray(WP._unpack2(jnp.asarray(WP.pack_codes_2bit(pk_q)),
-                                  q_pad, jnp.asarray(ql)))
+    up_q = np.asarray(W.unpack_codes_2bit(
+        jnp.asarray(W.pack_codes_2bit(pk_q)), q_pad, jnp.asarray(ql)))
     np.testing.assert_array_equal(up_q, raw_q.astype(np.int32))
 
     raw_batch = {"query": raw_q, "target": raw_t,
                  "qlen": ql, "tlen": tl, "h0": h0}
-    packed_batch = {"qpack": WP.pack_codes_2bit(pk_q),
-                    "tpack": WP.pack_codes_2bit(pk_t),
+    packed_batch = {"qpack": W.pack_codes_2bit(pk_q),
+                    "tpack": W.pack_codes_2bit(pk_t),
                     "qlen": ql, "tlen": tl, "h0": h0}
-    with pltpu.force_tpu_interpret_mode():
-        want = {k: np.asarray(v)
-                for k, v in WP.bsw_batch_pallas(raw_batch).items()}
-        got = {k: np.asarray(v)
-               for k, v in WP.bsw_batch_pallas_packed(
-                   packed_batch, q_pad, t_pad).items()}
-    for key in ("score", "qle", "tle", "gtle", "gscore", "max_off"):
-        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    want = np.asarray(W.bsw_batch_stacked(raw_batch))
+    got = np.asarray(W.bsw_batch_stacked(packed_batch, q_pad, t_pad))
+    np.testing.assert_array_equal(got, want)
 
 
 def test_score_pairs_packed_route_end_to_end():
-    """cli score_pairs on a packable pair set (interpret mode) matches the
-    scan engine — exercises the production packed dispatch path."""
+    """cli score_pairs on a packable pair set matches the scan engine —
+    exercises the production packed dispatch path."""
     from genomicsbench_palisade_tpu.cli.bsw import score_pairs
 
     rng = np.random.default_rng(11)
@@ -135,9 +127,8 @@ def test_score_pairs_packed_route_end_to_end():
     batch = W.prepare_pairs(pairs, q_pad=32, t_pad=64)
     want = {k: np.asarray(v)[: len(pairs)]
             for k, v in W.bsw_batch(batch).items()}
-    with pltpu.force_tpu_interpret_mode():
-        got = score_pairs(pairs)
-    for key in ("score", "qle", "tle", "gtle", "gscore", "max_off"):
+    got = score_pairs(pairs)
+    for key in W.OUT_ORDER:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 

@@ -7,9 +7,7 @@ the origin of the fork's chain benchmark, same max_skip=25 plaintext
 semantics (tools/minimap2-acceleration/kernel/scalar/src/
 host_kernel.cpp:38 vs benchmarks/chain/src/host_kernel.cpp:66).
 
-These sizes route through the windowed-scan path (the Pallas kernel
-caps at n_pad<=8192; ops/chain.py:225-232) — exactly the code path the
-round-1 review flagged as unexercised at scale.
+These sizes run the windowed-scan path at reference scale.
 """
 
 import pathlib

@@ -59,35 +59,6 @@ def test_chain_tiny_and_gap_table():
         np.testing.assert_array_equal(parents, want["parents"])
 
 
-def test_gap_fixed_point_contract():
-    """Fixed-point reconstruction == f64-exact table; fallback flags."""
-    from genomicsbench_palisade_tpu.ops.chain_pallas import gap_fixed_point
-
-    bw = 500
-    rng = np.random.default_rng(3)
-    # realistic tables from prepare_call across the avg_qspan range
-    tables = []
-    for q in (5.0, 17.3, 22.5, 28.9, 40.0, 255.0):
-        prep = C.prepare_call(
-            np.cumsum(rng.integers(1, 40, 8)).astype(np.int64),
-            np.arange(8).astype(np.int64), q)
-        tables.append(prep["gap_table"])
-    gt = np.stack(tables)
-    ms, gap0, ok = gap_fixed_point(gt, bw)
-    assert ok.all()
-    dd = np.arange(bw + 1, dtype=np.int64)
-    ilog = np.zeros(bw + 1, np.int64)
-    ilog[1:] = np.floor(np.log2(dd[1:])).astype(np.int64)
-    for b in range(gt.shape[0]):
-        rebuilt = gap0[b] + ((dd * int(ms[b])) >> 20) + (ilog >> 1)
-        np.testing.assert_array_equal(rebuilt, gt[b])
-    # a non-monotone table must flag the XLA path
-    bad = gt[:1].copy()
-    bad[0, 10] = bad[0, 9] - 1
-    _, _, ok2 = gap_fixed_point(bad, bw)
-    assert not ok2.any()
-
-
 def test_chain_calls_batched_matches_single():
     """Batched (vmapped) calls == per-call results, mixed sizes + empty."""
     import numpy as np
@@ -113,14 +84,11 @@ def test_chain_calls_batched_matches_single():
         np.testing.assert_array_equal(got[2], want[2])
 
 
-def test_chain_mixed_feasibility_split(monkeypatch):
-    """A batch mixing slope-feasible calls with exact-quarter avg_qspans
-    (25.0/50.0 — the double-rounding class with NO fixed-point slope,
-    VERDICT r2 weak #1/#2) must split: feasible calls verifiably run the
-    pallas kernel, infeasible ones the scan, results all exact."""
-    import jax
-    from jax.experimental.pallas import tpu as pltpu
-
+def test_chain_batched_exact_quarter_qspans():
+    """A batch mixing ordinary avg_qspans with exact-quarter ones
+    (25.0/50.0 — the class where the reference's 0.01f double rounding
+    wobbles) runs as one vmapped batch, every call exact vs its
+    single-call scan."""
     rng = np.random.default_rng(11)
     qspans = [20.1, 25.0, 18.7, 50.0, 23.3]
     calls = []
@@ -129,152 +97,72 @@ def test_chain_mixed_feasibility_split(monkeypatch):
         xs = np.cumsum(rng.integers(1, 40, n)).astype(np.int64) + 500
         ys = np.maximum(xs + rng.integers(-200, 200, n), 0)
         calls.append(C.prepare_call(xs, ys, avg_qspan=q))
-    from genomicsbench_palisade_tpu.ops.chain_pallas import gap_fixed_point
-
-    _, _, ok = gap_fixed_point(np.stack([c["gap_table"] for c in calls]), 500)
-    assert list(ok) == [True, False, True, False, True]
-
-    want = [C.chain_call(c, w=64, n_pad=256, engine="scan") for c in calls]
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    with pltpu.force_tpu_interpret_mode():
-        got = C.chain_calls_batched(calls, w=64)
-    assert C.LAST_ROUTE == {"pallas": 3, "scan": 2}, C.LAST_ROUTE
+    want = [C.chain_call(c, w=64, n_pad=256) for c in calls]
+    got = C.chain_calls_batched(calls, w=64)
     for g, w_ in zip(got, want):
         for oi in range(3):
             np.testing.assert_array_equal(g[oi], w_[oi])
 
 
-def test_pallas_routing_caps():
-    """Ring-kernel routing: chunk alignment and window caps."""
-    from genomicsbench_palisade_tpu.ops.chain import (_pallas_eligible,
-                                                      pad_anchor_bucket)
-
-    assert _pallas_eligible(True, 8192, 64, "tpu")
-    # ring-carry kernel: reference-scale calls are now pallas-eligible
-    assert _pallas_eligible(True, 16384, 64, "tpu")
-    assert _pallas_eligible(True, pad_anchor_bucket(87000), 64, "tpu")
-    assert _pallas_eligible(True, 8192, 256, "tpu")  # wide windows OK now
-    assert not _pallas_eligible(True, 8192, 1024, "tpu")  # > W_CAP
-    assert not _pallas_eligible(True, 8192 + 32, 64, "tpu")  # misaligned
-    assert not _pallas_eligible(True, 2048 + 64, 64, "tpu")  # chunk-misaligned
-    assert not _pallas_eligible(False, 8192, 64, "tpu")  # non-step tables
-    assert not _pallas_eligible(True, 8192, 64, "cpu")
-    assert pad_anchor_bucket(87000) % 2048 == 0
+def test_anchor_bucket_and_window():
+    """Power-of-two anchor buckets (reference-scale 87k calls -> 131072)
+    and windows rounded up from w_need, clamped to [16, max_iter + 16]."""
+    assert C.pad_anchor_bucket(0) == 64
+    assert C.pad_anchor_bucket(64) == 64
+    assert C.pad_anchor_bucket(65) == 128
+    assert C.pad_anchor_bucket(87000) == 131072
+    assert C.window_for({"w_need": 0}) == 16
+    assert C.window_for({"w_need": 17}) == 32
+    assert C.window_for({"w_need": 300}) == 512
+    assert C.window_for({"w_need": 10**6}) == C.MAX_ITER + 16
 
 
-def test_chain_ring_multichunk_interpret_parity():
-    """The ring-carry pallas kernel's MULTI-CHUNK path (n_pad > nc, the
-    route that serves reference-scale 87k-anchor calls) must match the
-    scan engine bit-exactly.  Runs in TPU interpret mode at a reduced
-    chunk size (nc=128, 2 chunks) so the carry hand-off is exercised
-    without a chip (chip_parity re-proves it at n_pad=16384 on real
-    hardware)."""
-    import numpy as np
+def test_chain_batched_padding_parity():
+    """A call padded into a larger bucket (n_pad 256 > n 250) with a
+    narrow window through the vmapped batch equals the unpadded
+    single-call scan."""
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from genomicsbench_palisade_tpu.ops import chain as C
-    from genomicsbench_palisade_tpu.ops.chain_pallas import (
-        LANE_TILE, chain_dp_pallas_batch, gap_fixed_point)
 
     rng = np.random.default_rng(3)
     n = 250
     x = (np.cumsum(rng.integers(1, 40, n)) + 1000).astype(np.uint64)
     y = (x.astype(np.int64) + rng.integers(-200, 200, n)).astype(np.uint64)
     call = C.prepare_call(x, y, 22.5)
-    n_pad, w, nc = 256, 16, 128
+    n_pad, w = 256, 16
 
     def p(a, f=0):
         return np.pad(a, (0, n_pad - len(a)), constant_values=f)
 
-    def padb(a, f=0):
-        return np.pad(a, ((0, LANE_TILE - 1),) + ((0, 0),) * (a.ndim - 1),
-                      constant_values=f)
-
-    x_lo = np.stack([p(call["x_lo"].view(np.int32))])
-    qi = np.stack([p(call["qi"])])
-    qspan = np.stack([p(call["qspan"])])
-    st_eff = np.stack([p(call["st_eff"])])
-    gt = np.stack([call["gap_table"]])
-    steps, gap0, ok = gap_fixed_point(gt, call["bw"])
-    assert bool(ok.all())
     nn = np.array([n], np.int32)
-
-    with pltpu.force_tpu_interpret_mode():
-        sc, par, pk = chain_dp_pallas_batch(
-            jnp.asarray(padb(x_lo)), jnp.asarray(padb(qi)),
-            jnp.asarray(padb(qspan)), jnp.asarray(padb(st_eff)),
-            jnp.asarray(padb(steps)), jnp.asarray(padb(gap0)),
-            jnp.asarray(padb(nn)), w, n_pad,
-            call["max_dist_x"], call["max_dist_y"], call["bw"], nc=nc)
-
     ws, wp, wk = C.chain_dp_device_batch(
-        jnp.asarray(x_lo), jnp.asarray(qi), jnp.asarray(qspan),
-        jnp.asarray(st_eff), jnp.asarray(gt), jnp.asarray(nn),
+        jnp.asarray(np.stack([p(call["x_lo"].view(np.int32))])),
+        jnp.asarray(np.stack([p(call["qi"])])),
+        jnp.asarray(np.stack([p(call["qspan"])])),
+        jnp.asarray(np.stack([p(call["st_eff"])])),
+        jnp.asarray(np.stack([call["gap_table"]])), jnp.asarray(nn),
         w, n_pad, call["max_dist_x"], call["max_dist_y"], call["bw"])
+    sc, par, pk = C.chain_call(call, w=w)
+    np.testing.assert_array_equal(np.asarray(ws)[0, :n], sc)
+    np.testing.assert_array_equal(np.asarray(wp)[0, :n], par)
+    np.testing.assert_array_equal(np.asarray(wk)[0, :n], pk)
 
-    np.testing.assert_array_equal(np.asarray(sc)[0, :n], np.asarray(ws)[0, :n])
-    np.testing.assert_array_equal(np.asarray(par)[0, :n], np.asarray(wp)[0, :n])
-    np.testing.assert_array_equal(np.asarray(pk)[0, :n], np.asarray(wk)[0, :n])
 
-
-def test_chain_pallas_vs_reference_fixtures(fixtures_dir):
-    """Reference-binary goldens through the PALLAS kernel (interpret
-    mode, batched at a shared bucket) — goldens previously pinned only
-    the scan engine on CPU."""
+def test_chain_batched_vs_reference_fixtures(fixtures_dir):
+    """All reference-binary goldens through one vmapped batch at a
+    shared (n_pad, w) bucket — the single-call test pins only 12."""
     import json
 
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from genomicsbench_palisade_tpu.ops.chain_pallas import (
-        LANE_TILE, chain_dp_pallas_batch, gap_fixed_point)
-
     calls = json.load(open(fixtures_dir / "chain_golden.json"))
-    preps, expect = [], []
+    preps = []
     for call in calls:
         x = np.array([int(v) for v in call["x"]], dtype=np.uint64)
         y = np.array([int(v) for v in call["y"]], dtype=np.uint64)
-        p = C.prepare_call(x, y, call["avg_qspan"], call["max_dist_x"],
-                           call["max_dist_y"], call["bw"])
-        preps.append(p)
-        expect.append(call)
-    w = max(int(2 ** np.ceil(np.log2(max(p["w_need"], 1)))) for p in preps)
-    w = max(w, 16)
-    n_pad = C.pad_anchor_bucket(max(p["n"] for p in preps))
-    assert w <= 512 and n_pad <= 2048, (w, n_pad)  # interpret-feasible
-
-    def pad(a, f=0):
-        return np.pad(a, (0, n_pad - len(a)), constant_values=f)
-
-    x_lo = np.stack([pad(p["x_lo"].view(np.int32)) for p in preps])
-    qi = np.stack([pad(p["qi"]) for p in preps])
-    qspan = np.stack([pad(p["qspan"]) for p in preps])
-    st_eff = np.stack([pad(p["st_eff"]) for p in preps])
-    gt = np.stack([p["gap_table"] for p in preps])
-    steps, gap0, ok = gap_fixed_point(gt, preps[0]["bw"])
-    assert bool(np.asarray(ok).all())
-    nn = np.array([p["n"] for p in preps], np.int32)
-
-    b0 = len(preps)
-    b_pad = -(-b0 // LANE_TILE) * LANE_TILE
-
-    def padb(a, f=0):
-        return np.pad(a, ((0, b_pad - b0),) + ((0, 0),) * (a.ndim - 1),
-                      constant_values=f)
-
-    with pltpu.force_tpu_interpret_mode():
-        sc, par, _pk = chain_dp_pallas_batch(
-            jnp.asarray(padb(x_lo)), jnp.asarray(padb(qi)),
-            jnp.asarray(padb(qspan)), jnp.asarray(padb(st_eff)),
-            jnp.asarray(padb(steps)), jnp.asarray(padb(gap0)),
-            jnp.asarray(padb(nn)), w, n_pad,
-            preps[0]["max_dist_x"], preps[0]["max_dist_y"], preps[0]["bw"])
-    sc = np.asarray(sc)
-    par = np.asarray(par)
-    for i, call in enumerate(expect):
-        nn_i = int(nn[i])
-        np.testing.assert_array_equal(sc[i, :nn_i], call["scores"],
+        preps.append(C.prepare_call(x, y, call["avg_qspan"],
+                                    call["max_dist_x"], call["max_dist_y"],
+                                    call["bw"]))
+    got = C.chain_calls_batched(preps)
+    for i, (call, (sc, par, _pk)) in enumerate(zip(calls, got)):
+        np.testing.assert_array_equal(sc, call["scores"],
                                       err_msg=f"call {i} scores")
-        np.testing.assert_array_equal(par[i, :nn_i], call["parents"],
+        np.testing.assert_array_equal(par, call["parents"],
                                       err_msg=f"call {i} parents")

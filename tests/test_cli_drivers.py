@@ -146,15 +146,29 @@ def test_peak_rss_and_memsize():
     assert get_memory_size() > 1024 ** 3  # at least a GiB
 
 
-def test_compile_cache_enable(tmp_path, monkeypatch):
-    from genomicsbench_palisade_tpu.utils.compile_cache import enable
-
-    monkeypatch.setenv("GENOMICS_TPU_CACHE_DIR", str(tmp_path / "xla"))
-    path = enable()
-    assert path == str(tmp_path / "xla")
+@pytest.mark.parametrize("from_env", [True, False])
+def test_compile_cache_enable(tmp_path, monkeypatch, from_env):
+    """The cache lands in JAX_COMPILATION_CACHE_DIR when it is set, else
+    in the fixed <repo>/.jax_cache."""
     import os
+    import pathlib
 
-    assert os.path.isdir(path)
     import jax
 
-    assert jax.config.jax_compilation_cache_dir == path
+    from genomicsbench_palisade_tpu.utils import compile_cache as CC
+
+    repo = pathlib.Path(CC.__file__).resolve().parents[2]
+    if from_env:
+        want = str(tmp_path / "xla")
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+    else:
+        want = str(repo / ".jax_cache")
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        path = CC.enable()
+        assert path == want
+        assert os.path.isdir(path)
+        assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

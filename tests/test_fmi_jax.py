@@ -121,8 +121,9 @@ def test_fmi_cli_pipelined(tmp_path, capsys):
     assert total >= 40
 
 
-def test_fmi_cli_host_engine_matches_tpu(tmp_path, capsys):
-    """--engine host output == --engine tpu output (bit-exact intervals)."""
+def test_fmi_cli_host_engine_matches_device(tmp_path, capsys):
+    """--engine host output == --engine device output (bit-exact
+    intervals)."""
     import numpy as np
 
     from genomicsbench_palisade_tpu.index import builder as IB
@@ -149,17 +150,17 @@ def test_fmi_cli_host_engine_matches_tpu(tmp_path, capsys):
     main([str(tmp_path / "idx.npz"), str(fq), "--engine", "host",
           "--print-output"])
     host_out = capsys.readouterr().out
-    main([str(tmp_path / "idx.npz"), str(fq), "--engine", "tpu",
+    main([str(tmp_path / "idx.npz"), str(fq), "--engine", "device",
           "--print-output"])
-    tpu_out = capsys.readouterr().out
+    device_out = capsys.readouterr().out
 
     def intervals(text):
         return [l for l in text.split("\n") if l.startswith("[") or l.endswith(":")]
 
-    assert intervals(host_out) == intervals(tpu_out)
+    assert intervals(host_out) == intervals(device_out)
     assert "totalSmems = " in host_out
     h_total = host_out.split("totalSmems = ")[1].split()[0]
-    t_total = tpu_out.split("totalSmems = ")[1].split()[0]
+    t_total = device_out.split("totalSmems = ")[1].split()[0]
     assert h_total == t_total
 
 

@@ -1,6 +1,7 @@
 """GRM: device matmul path vs a direct numpy oracle + bed roundtrip."""
 
 import numpy as np
+import pytest
 
 from genomicsbench_palisade_tpu.io.plink import read_bed, write_bed
 from genomicsbench_palisade_tpu.ops.grm import compute_grm, normalize_block_np
@@ -50,12 +51,11 @@ def test_bed_roundtrip(tmp_path):
     assert len(fam) == 11 and len(bim) == 20
 
 
-def test_grm_compensated_precision_mode():
-    """'compensated' split-bf16 (2 MXU passes exploiting the syrk
-    transpose symmetry): result within the 2e-5 plink2 contract of the
-    float64 oracle, counts exact.  On CPU the bf16 split is real (the
-    inputs are truncated) so the dropped Zl^T Zl term's error is
-    actually exercised."""
+@pytest.mark.parametrize("block", [256, 512])
+def test_grm_device_default_precision(block):
+    """_grm_device at its default Z^T Z precision, over several variant
+    blocks: within the 2e-5 plink2 contract of the float64 oracle,
+    counts exact, sums symmetric."""
     import jax
 
     from genomicsbench_palisade_tpu.ops.grm import _grm_device
@@ -80,14 +80,13 @@ def test_grm_compensated_precision_mode():
         jax.device_put(geno),
         jax.device_put((2 * freqs).astype(np.float32)),
         jax.device_put(isd.astype(np.float32)), jax.device_put(ok),
-        block=512, precision="compensated")
+        block=block)
     got = np.asarray(sums, np.float64) / np.maximum(
         np.asarray(counts, np.float64), 1.0)
     scale = np.maximum(np.abs(want), 1.0)
     assert np.max(np.abs(got - want) / scale) < 2e-5
     np.testing.assert_array_equal(np.asarray(counts), want_cnt)
-    # symmetric up to gemm tile-order rounding (the cross + cross.T
-    # construction adds an exactly-symmetric term to Zh^T Zh, whose own
-    # (i,j)/(j,i) reductions may associate differently per tile)
+    # symmetric up to gemm tile-order rounding ((i,j) and (j,i) may
+    # associate differently per tile)
     s = np.asarray(sums, np.float64)
     np.testing.assert_allclose(s, s.T, rtol=1e-5, atol=1e-3)

@@ -10,8 +10,9 @@ from genomicsbench_palisade_tpu.io.native import available, parse_reads_native
 from genomicsbench_palisade_tpu.ops.oracle.fmi import encode_read
 
 
-@pytest.mark.skipif(not available(), reason="native library not built")
 def test_native_matches_python(tmp_path):
+    if not available():
+        pytest.skip("native library not built")
     rng = np.random.default_rng(0)
     reads = ["".join(rng.choice(list("ACGTN"), int(rng.integers(50, 200)))) for _ in range(30)]
     fq = tmp_path / "t.fq"

@@ -4,7 +4,7 @@ The bsw dataset-scale driver leans on three native single-pass loops:
 structural parse of the 3-line pair format (reference loadPairs,
 benchmarks/bsw/main_banded.cpp:148-202), 2-bit wire-row packing, and raw
 int8 row padding.  Each must be bit-identical to the numpy formulation
-it replaces (io/pairs.py, ops/bsw_pallas.py pack_codes_2bit).
+it replaces (io/pairs.py, ops/bsw.py pack_codes_2bit).
 """
 
 import unittest.mock as mock
@@ -14,10 +14,13 @@ import pytest
 
 from genomicsbench_palisade_tpu.io import native as N
 from genomicsbench_palisade_tpu.io import pairs as P
-from genomicsbench_palisade_tpu.ops.bsw_pallas import pack_codes_2bit
+from genomicsbench_palisade_tpu.ops.bsw import pack_codes_2bit
 
-pytestmark = pytest.mark.skipif(not N.available(),
-                                reason="native lib not built")
+
+@pytest.fixture(autouse=True)
+def _native_lib():
+    if not N.available():
+        pytest.skip("native lib not built")
 
 
 def _synth_file(tmp_path, n=400, terminated=False, seed=3):
@@ -101,12 +104,10 @@ def test_pad_rows_native_matches_numpy():
     assert np.array_equal(got, want)
 
 
-def test_score_pairs_soa_interpret_parity():
+def test_score_pairs_soa_matches_scan():
     """End-to-end: the native-prepped SoA scoring path must equal the
     golden-pinned scan engine on mixed pairs (incl. ambiguous bases that
     force the raw fallback chunks)."""
-    from jax.experimental.pallas import tpu as pltpu
-
     from genomicsbench_palisade_tpu.cli.bsw import score_pairs_soa
     from genomicsbench_palisade_tpu.ops import bsw as W
 
@@ -132,8 +133,7 @@ def test_score_pairs_soa_interpret_parity():
     offs = np.concatenate(([0], np.cumsum(sizes[:-1])))
     soa = {"codes": codes, "q_off": offs[0::2], "q_len": q_len,
            "t_off": offs[1::2], "t_len": t_len, "h0": h0}
-    with pltpu.force_tpu_interpret_mode():
-        got = score_pairs_soa(soa)
-        want = W.bsw_batch(W.prepare_pairs(pairs))
+    got = score_pairs_soa(soa)
+    want = W.bsw_batch(W.prepare_pairs(pairs))
     for k in got:
         assert np.array_equal(got[k], np.asarray(want[k])), k

@@ -104,7 +104,7 @@ def test_phmm_f64_batched_matches_scalar_oracle():
 
     from genomicsbench_palisade_tpu.ops import phmm as P
     from genomicsbench_palisade_tpu.ops.oracle import phmm as O
-    from genomicsbench_palisade_tpu.ops.phmm_f64 import phmm_forward_f64
+    from genomicsbench_palisade_tpu.ops.phmm_f64 import phmm_forward_sweep
 
     rng = np.random.default_rng(5)
     reads, haps, pairs = [], [], []
@@ -120,7 +120,7 @@ def test_phmm_f64_batched_matches_scalar_oracle():
         haps.append(rng.integers(0, 5, hl))
         pairs.append((i, i))
     batch = P.prepare_batch(reads, haps, pairs, r_pad=48, h_pad=64)
-    got = phmm_forward_f64({k: np.asarray(v) for k, v in batch.items()})
+    got = phmm_forward_sweep({k: np.asarray(v) for k, v in batch.items()})
     for i, (ri, hi) in enumerate(pairs):
         r = reads[ri]
         want = O.compute_full_prob(
@@ -128,14 +128,13 @@ def test_phmm_f64_batched_matches_scalar_oracle():
         assert got[i] == want, (i, got[i], want)
 
 
-def test_phmm_pallas_vs_reference_fixtures(fixtures_dir):
-    """GKL-binary goldens through the PALLAS kernel (interpret mode):
-    the f32 raw sums must be bit-identical to the scan's, so the final
-    likelihoods (incl. f64-fallback routing) match the golden contract."""
-    import jax
-    from jax.experimental.pallas import tpu as pltpu
-
-    from genomicsbench_palisade_tpu.ops import phmm_pallas as PP
+def test_phmm_f32_sweep_vs_reference_fixtures(fixtures_dir):
+    """GKL-binary goldens through the float32 numpy sweep — the plain
+    reference the CUDA kernel equals bit for bit — with the
+    MIN_ACCEPTED routing and the double fallback: every likelihood
+    within the golden 1e-5 contract."""
+    from genomicsbench_palisade_tpu.ops.phmm_f64 import (
+        phmm_fallback_log10, phmm_forward_sweep)
 
     cases = json.load(open(fixtures_dir / "phmm_golden.json"))
     reads, haps, pairs = [], [], []
@@ -151,23 +150,22 @@ def test_phmm_pallas_vs_reference_fixtures(fixtures_dir):
         )
         haps.append(O.encode_bases(case["hap"]))
         pairs.append((k, k))
-    while len(pairs) % 128:  # full lane tile
-        reads.append(reads[0])
-        haps.append(haps[0])
-        pairs.append((len(pairs), len(pairs)))
     batch = P.prepare_batch(reads, haps, pairs)
-    batch = {k: jax.device_put(np.asarray(v)) for k, v in batch.items()}
-    want = np.asarray(P.phmm_forward(batch)[1])
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(PP.phmm_forward_pallas(batch)[1])
-    np.testing.assert_array_equal(got[: len(cases)], want[: len(cases)])
+    raw = phmm_forward_sweep(batch, np.float32)
+    assert raw.dtype == np.float32
+    fallback = (raw < np.float32(P.MIN_ACCEPTED)) | ~np.isfinite(raw)
+    with np.errstate(divide="ignore"):
+        got = (np.log10(raw) - np.float32(P._tables_f32()[2])).astype(
+            np.float64)
+    vals, idx = phmm_fallback_log10(batch, fallback)
+    got[idx] = vals
+    for bi, case in enumerate(cases):
+        assert abs(got[bi] - case["log10"]) < 1e-5, (bi, got[bi], case["log10"])
 
 
 def test_phmm_fallback_slices_only_testcase_axis():
-    """Regression: phmm_fallback_log10 must skip prepare_batch's
-    pre-transposed [Rp, B] '*_t' planes — slicing those by testcase
-    index crashed the CLI path whenever a fallback index exceeded
-    r_pad (surfaced by the 550-batch PHMM_SCALE run)."""
+    """Regression: phmm_fallback_log10 slices every batch array along the
+    testcase axis only — fallback indices beyond r_pad must work."""
     rng = np.random.default_rng(41)
     n = 24  # > r_pad below, so old code indexes out of bounds
     reads, haps, pairs = [], [], []
@@ -183,7 +181,6 @@ def test_phmm_fallback_slices_only_testcase_axis():
         haps.append(rng.integers(0, 4, 12))
         pairs.append((k, k))
     batch = P.prepare_batch(reads, haps, pairs, r_pad=8, h_pad=16)
-    assert any(k.endswith("_t") for k in batch)
     from genomicsbench_palisade_tpu.ops.phmm_f64 import phmm_fallback_log10
 
     mask = np.zeros(n, bool)
@@ -202,15 +199,11 @@ def test_phmm_fallback_slices_only_testcase_axis():
         np.testing.assert_array_equal(v, want)
 
 
-def test_phmm_pallas_compact_int8_batch():
-    """The end-to-end wire ships rs_row/q/i/d/c/hap as int8 with NO
-    pre-transposed planes (phmm_forward_auto's compact path); the
-    pallas kernel must produce results identical to the full-precision
-    planes path."""
+def test_phmm_compact_int8_batch():
+    """The int8 wire (compact_batch: base codes and quals as int8, the
+    CUDA kernel's input) is exact: the scan on it equals the scan on the
+    full-width batch."""
     import jax
-    from jax.experimental.pallas import tpu as pltpu
-
-    from genomicsbench_palisade_tpu.ops import phmm_pallas as PP
 
     rng = np.random.default_rng(47)
     reads, haps, pairs = [], [], []
@@ -225,16 +218,15 @@ def test_phmm_pallas_compact_int8_batch():
         })
         haps.append(rng.integers(0, 4, int(rng.integers(16, 64))))
         pairs.append((k, k))
-    full = P.prepare_batch(reads, haps, pairs)  # with planes
-    compact = {k: (np.asarray(v).astype(np.int8)
-                   if k in ("rs_row", "q", "i", "d", "c", "hap")
-                   else np.asarray(v))
-               for k, v in full.items() if not k.endswith("_t")}
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(PP.phmm_forward_pallas(
-            {k: jax.device_put(v) for k, v in full.items()})[1])
-        got = np.asarray(PP.phmm_forward_pallas(
-            {k: jax.device_put(v) for k, v in compact.items()})[1])
+    full = P.prepare_batch(reads, haps, pairs)
+    compact = P.compact_batch(full)
+    for k in P.COMPACT_KEYS:
+        assert compact[k].dtype == np.int8
+        np.testing.assert_array_equal(compact[k], full[k])
+    want = np.asarray(P.phmm_forward(
+        {k: jax.device_put(v) for k, v in full.items()})[1])
+    got = np.asarray(P.phmm_forward(
+        {k: jax.device_put(v) for k, v in compact.items()})[1])
     np.testing.assert_array_equal(got, want)
 
 
@@ -244,7 +236,7 @@ def test_phmm_f64_native_bit_exact():
     same per-cell op tree, -ffp-contract=off."""
     from genomicsbench_palisade_tpu.io.native import available
     from genomicsbench_palisade_tpu.ops.phmm_f64 import (
-        phmm_forward_f64, phmm_forward_f64_native)
+        phmm_forward_f64_native, phmm_forward_sweep)
 
     if not available():
         pytest.skip("native lib not built")
@@ -259,9 +251,9 @@ def test_phmm_f64_native_bit_exact():
                       "c": np.full(rl, 10)})
         haps.append(rng.integers(0, 5, int(rng.integers(10, 300))))
         pairs.append((k, k))
-    batch = P.prepare_batch(reads, haps, pairs, transposed=False)
+    batch = P.prepare_batch(reads, haps, pairs)
     bn = {k: np.asarray(v) for k, v in batch.items()}
-    want = phmm_forward_f64(bn)
+    want = phmm_forward_sweep(bn)
     got = phmm_forward_f64_native(bn)
     np.testing.assert_array_equal(got, want)
     raw = O.compute_full_prob(reads[3]["bases"], haps[3], reads[3]["q"],

@@ -4,8 +4,7 @@ The host dual-engine (gt_poa_align / gt_poa_msa_window) must produce
 IDENTICAL alignments to ops/oracle/poa.convex_align — same matrix
 values, max-cell choice, traceback priority and repair loops — across
 all three spoa AlignmentTypes, and identical consensus through full
-multi-round MSA runs.  It is the production default in cli/poa.py
-(measured 2.4x the reference spoa SISD binary at the POA_SCALE shape),
+multi-round MSA runs.  It is the production default in cli/poa.py,
 so every divergence is a correctness bug, not a tolerance.
 
 Also pins the engine against the same reference-binary golden fixtures

@@ -1,9 +1,9 @@
 """Smoke coverage for the dataset-scale rehearsal tools.
 
 Full-scale runs (10.6M bsw pairs, 1001 chain calls to 87k anchors, the
-multi-Gbp fmi index) happen on the real chip via the tools themselves;
-these tests keep the tool plumbing green — generation, CLI-path dispatch,
-parity spot checks — on the CI mesh in interpret mode.
+multi-Gbp fmi index) happen on the GPU via the tools themselves; these
+tests keep the tool plumbing green — generation, CLI-path dispatch,
+parity spot checks — on the CPU at smoke sizes.
 """
 
 import pathlib

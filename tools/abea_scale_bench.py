@@ -1,11 +1,12 @@
-"""Nanopore-realistic abea rehearsal: 10-50 kb reads (VERDICT r3 #4).
+"""Nanopore-realistic abea rehearsal: 10-50 kb reads.
 
 Real f5c inputs are 10-100 kb reads at ~2 events/base, so band counts
 reach 10^5 (the reference sizes its band machinery for exactly this:
 benchmarks/abea/src/align.c:145-166, f5c.cu:450-497).  All committed
 abea fixtures and benches used <=~560 bp reads; this drives the
-production Pallas fill + on-device walk at long-read scale and records
-reads/s, events/s and fetched bytes in ABEA_SCALE.json.
+production fill (native host engine, or the device scan with
+--engine device) at long-read scale and prints reads/s, events/s and
+fetched bytes as one JSON line.
 
 Parity: the first --parity reads (capped at 15 kb — the cited oracle
 walks ~2 s/kb in Python) must decode to EXACTLY the oracle alignment,
@@ -13,7 +14,7 @@ including QC drops.
 
 Usage:
   python tools/abea_scale_bench.py                    # 16 reads, 10-50 kb
-  python tools/abea_scale_bench.py --smoke            # no chip, interpret
+  python tools/abea_scale_bench.py --smoke            # tiny, CPU-sized
 """
 
 from __future__ import annotations
@@ -65,9 +66,9 @@ def main(argv=None):
     ap.add_argument("--parity", type=int, default=8)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--engine", choices=["host", "device"], default="host",
-                    help="host = native C++ fill (production default, "
-                    "4.4x the reference align.c); device = Pallas fill "
-                    "+ on-device walk")
+                    help="host = native C++ fill (production default); "
+                    "device = jnp band-fill "
+                    "scan + host traceback")
     ap.add_argument("--add-100k", action="store_true",
                     help="append one ~100 kb read (f5c's upper regime)")
     ap.add_argument("--smoke", action="store_true")
@@ -88,11 +89,11 @@ def main(argv=None):
     lens = np.linspace(args.len_min, args.len_max, args.reads).astype(int)
     if args.parity < args.reads:
         # partial parity: shorten the checked prefix so the Python
-        # oracle stays tractable (~2 s/kb)
+        # oracle stays tractable
         lens[: args.parity] = np.linspace(
             args.len_min, min(15_000, args.len_max),
             args.parity).astype(int)
-    # else: full-length parity on every read (VERDICT r4 #6)
+    # else: full-length parity on every read
     t0 = time.perf_counter()
     seqs, evs = [], []
     for ln in lens:
@@ -122,33 +123,22 @@ def main(argv=None):
             if res is None:
                 raise SystemExit("native lib not built (make -C native)")
             return res
-
-        import contextlib
-        ctx = contextlib.nullcontext()
     else:
-        from genomicsbench_palisade_tpu.ops.abea_pallas import (
-            align_events_batch_pallas)
+        from genomicsbench_palisade_tpu.ops.abea import align_events_batch
 
         def run():
-            return align_events_batch_pallas(seqs, evs, model, ones, zeros)
+            return align_events_batch(seqs, evs, model, ones, zeros,
+                                      use_native=False)
 
-        if args.smoke:
-            from jax.experimental.pallas import tpu as pltpu
-            ctx = pltpu.force_tpu_interpret_mode()
-        else:
-            import contextlib
-            ctx = contextlib.nullcontext()
-
-    with ctx:
+    t0 = time.perf_counter()
+    res = run()
+    warm_s = time.perf_counter() - t0
+    best = None
+    for _ in range(args.reps):
         t0 = time.perf_counter()
         res = run()
-        warm_s = time.perf_counter() - t0
-        best = None
-        for _ in range(args.reps):
-            t0 = time.perf_counter()
-            res = run()
-            dt = time.perf_counter() - t0
-            best = dt if best is None else min(best, dt)
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
 
     aligned = sum(1 for r in res if r)
     print(f"[run] warm {warm_s:.1f} s, best {best:.2f} s, "

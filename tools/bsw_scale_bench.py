@@ -5,18 +5,18 @@ into 23.47 GB of buffers (scripts/bsw_large:5-8; BASELINE.md "bsw large
 input scale").  This synthesizes the same pair count in the reference's
 3-line record format (h0 line, ref line, query line — digit-coded bases,
 benchmarks/bsw/main_banded.cpp:673-760), then drives the SAME path as
-`cli/bsw.py` (parse_pairs -> score_pairs bucketed pallas batches) and
+`cli/bsw.py` (parse_pairs -> score_pairs bucketed scan batches) and
 reports read/prep/kernel split plus pairs/s.
 
 Parity: a random sample of pairs is re-scored with the XLA scan engine
 (ops/bsw.py, itself pinned to the 300 reference-binary goldens in
 tests/fixtures/bsw_golden.json) and every output field must match the
-pallas engine bit-exactly.
+driver's stacked, 2-bit-wire dispatch bit-exactly.
 
 Usage:
   python tools/bsw_scale_bench.py --workdir /tmp/bsw_scale            # full 10.6M
   python tools/bsw_scale_bench.py --pairs 1000000                     # scaled
-  python tools/bsw_scale_bench.py --smoke                             # no chip
+  python tools/bsw_scale_bench.py --smoke                             # tiny
 """
 
 from __future__ import annotations
@@ -99,33 +99,25 @@ def main(argv=None):
     n_pairs = len(soa["h0"])
     print(f"[read] {n_pairs:,} pairs in {read_s:.1f} s", file=sys.stderr)
 
-    if args.smoke:
-        from jax.experimental.pallas import tpu as pltpu
-        ctx = pltpu.force_tpu_interpret_mode()
-    else:
-        import contextlib
-        ctx = contextlib.nullcontext()
+    t0 = time.perf_counter()
+    results = score_pairs_soa(soa)
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = score_pairs_soa(soa)
+    kernel_s = time.perf_counter() - t0
 
-    with ctx:
-        t0 = time.perf_counter()
-        results = score_pairs_soa(soa)
-        warm_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        results = score_pairs_soa(soa)
-        kernel_s = time.perf_counter() - t0
-
-        # parity sample: pallas CLI results vs the golden-pinned scan engine
-        sel = rng.choice(n_pairs, min(args.parity_sample, n_pairs),
-                         replace=False)
-        sample = [(soa["codes"][soa["q_off"][i]: soa["q_off"][i] + soa["q_len"][i]],
-                   soa["codes"][soa["t_off"][i]: soa["t_off"][i] + soa["t_len"][i]],
-                   int(soa["h0"][i])) for i in sel]
-        batch = W.prepare_pairs(sample)
-        want = {k: np.asarray(v) for k, v in W.bsw_batch(batch).items()}
-        for row, i in enumerate(sel):
-            for key in ("score", "qle", "tle", "gtle", "gscore", "max_off"):
-                assert int(results[key][i]) == int(want[key][row]), (
-                    key, i, int(results[key][i]), int(want[key][row]))
+    # parity sample: CLI results vs the golden-pinned scan engine
+    sel = rng.choice(n_pairs, min(args.parity_sample, n_pairs),
+                     replace=False)
+    sample = [(soa["codes"][soa["q_off"][i]: soa["q_off"][i] + soa["q_len"][i]],
+               soa["codes"][soa["t_off"][i]: soa["t_off"][i] + soa["t_len"][i]],
+               int(soa["h0"][i])) for i in sel]
+    batch = W.prepare_pairs(sample)
+    want = {k: np.asarray(v) for k, v in W.bsw_batch(batch).items()}
+    for row, i in enumerate(sel):
+        for key in ("score", "qle", "tle", "gtle", "gscore", "max_off"):
+            assert int(results[key][i]) == int(want[key][row]), (
+                key, i, int(results[key][i]), int(want[key][row]))
 
     cells = float(soa["q_len"].astype(np.int64) @ soa["t_len"].astype(np.int64))
     out = {

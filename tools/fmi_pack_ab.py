@@ -1,4 +1,4 @@
-"""A/B the host fmi occ layouts at genome scale (VERDICT r2 item 4).
+"""A/B the host fmi occ layouts at genome scale.
 
 Loads a cached genome-scale index ONCE, then times the native 3-phase
 search per occ layout on the same reads:

@@ -1,7 +1,7 @@
-// Same-VM perf baseline for the reference's adaptive banded event
+// Same-machine perf baseline for the reference's adaptive banded event
 // alignment (f5c align.c:169-548 — the CPU path of the abea
 // benchmark).  Takes pre-made event MEANS (the same inputs
-// tools/abea_scale_bench.py feeds the Pallas fill: scale=1 shift=0,
+// tools/abea_scale_bench.py feeds the fill: scale=1 shift=0,
 // event detection and scaling out of scope on both sides) and times
 // align() alone, best-of-reps.
 //

@@ -1,6 +1,6 @@
-// Same-VM perf baseline for the reference's banded SWA — BOTH paths:
+// Same-machine perf baseline for the reference's banded SWA — BOTH paths:
 //   scalar  — scalarBandedSWA per pair (bandedSWA.cpp:130-251, the
-//             semantic spec; what REF_BASELINE's "scalar" row times)
+//             semantic spec)
 //   avx2    — getScores16 -> smithWatermanBatchWrapper16 ->
 //             smithWaterman256_16, the 16-lane inter-pair SIMD path the
 //             reference driver actually runs in production

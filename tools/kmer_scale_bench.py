@@ -2,8 +2,8 @@
 
 The reference's kmer-cnt operates on GB-scale read sets behind the
 minLen filter (benchmarks/kmer-cnt/sequence_container.cpp minimumLength
-/ kmer_cnt.cpp:220-231); the committed bench number (212 Mbases/s) is
-512 x 5.5 kb reads — three orders of magnitude smaller.  This
+/ kmer_cnt.cpp:220-231); tools/bench_all.py counts 512 x 5.5 kb reads —
+three orders of magnitude smaller.  This
 synthesizes coverage-style reads off one genome (so the distinct-kmer
 set and the saturation tail behave like real data), streams them
 through count_kmers_batched on device, and records Mbases/s in
@@ -82,7 +82,7 @@ def main(argv=None):
 
     cap = 1 << 21 if args.smoke else 1 << 26
     # host hash engine (the dataset-scale default; fmi-style dual-engine
-    # split — the device merge is sort-rate-bound at ~11 Mbases/s)
+    # split — the device merge is sort-rate-bound)
     t0 = time.perf_counter()
     host_metrics = K.count_kmers_host(reads)
     host_s = time.perf_counter() - t0 if host_metrics is not None else None
@@ -100,7 +100,7 @@ def main(argv=None):
 
     # parity subset: batched vs the golden-pinned one-shot pipeline
     if args.host_only:
-        # chip-free run: the subset check would init the TPU backend
+        # host-only run: keep the subset check off the accelerator
         from chain_scale_bench import force_cpu_backend
         force_cpu_backend()
     sub = reads[: args.parity_reads]

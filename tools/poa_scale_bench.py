@@ -2,7 +2,7 @@
 
 The reference's poa input is FASTA windows delimited by '>0' headers
 with ~0.5-1 kb sequences per window (benchmarks/poa/msa_spoa_omp.cpp:
-102-165 slot stride); the committed bench number (poa 482 seqs/s) is 32
+102-165 slot stride); tools/bench_all.py runs 32
 synthetic windows of 6 x 200 bp — an order of magnitude below the real
 shape.  This drives the production device lock-step consensus loop
 (ops/poa.py msa_consensus_batch, native graph) on reference-class
@@ -57,8 +57,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--engine", choices=["host", "device"], default="host",
                     help="host = native C++ align engine (production "
-                    "default, 2.4x the reference SISD binary); device = "
-                    "TPU lock-step fill")
+                    "default); device = "
+                    "device lock-step fill")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--out", default="POA_SCALE.json")
     args = ap.parse_args(argv)
